@@ -12,6 +12,15 @@ leaves its input untouched.  Stages carry `torch.profiler` labels
 (`agent/seg`, `agent/paint`, `agent/stack`, `agent/brake`, `agent/lidar`,
 `agent/decode`, `agent/planner`); without a profiler they record nothing.
 
+`compute_dtype` (default f32) is lav_tpu's: the camera nets, the painted
+features, the lidar model and the planner crops and ResNet run in it,
+with lav_tpu's casts (`agent.py:107,213-220,291-292,308`): the seg
+softmax, the brake output, the head maps, the GRU rollouts, geometry, EKF
+and PID stay f32.  The stacked points enter the lidar model in the
+compute dtype, so pillar ids come from bf16 coordinates under bf16.
+`use_pallas` picks lav_tpu's pillar route (ops/pillar.py).  The models
+may carry int8 convs (`nn/quant.py`, `agent/setup.py`).
+
 The diagnostic `skip` stages and the `det_override` option of lav_tpu's
 agent are not ported.
 """
@@ -101,7 +110,7 @@ def _ego_hull_mask(pts):
 
 def build_agent(cfg: LAVConfig, *, num_ego: int = 1, max_points: int = 0,
                 camera_yaws=(-60, 0, 60), rgb_hw=(288, 256), cam_fov=64,
-                device=None):
+                compute_dtype=None, use_pallas: bool = False, device=None):
     """Returns (init_state, step) for `num_ego` egos on `device` (default
     `cuda`; raises if no card is present and the CPU was not asked for).
 
@@ -113,6 +122,7 @@ def build_agent(cfg: LAVConfig, *, num_ego: int = 1, max_points: int = 0,
       cmd (E,) int model command, target (E, 2) world-frame goal vector.
     """
     dev = resolve_device(device)
+    cdt = compute_dtype or torch.float32
     E = num_ego
     num_stack = cfg.num_frame_stack + 1
     num_keep = num_stack * GAP if cfg.num_frame_stack > 0 else 1
@@ -219,15 +229,16 @@ def build_agent(cfg: LAVConfig, *, num_ego: int = 1, max_points: int = 0,
         rgbs = obs["rgbs"]
         ncams = rgbs.shape[1]
         with record_function("agent/seg"):
-            seg_logits = models.seg_model(rgbs.reshape(E * ncams,
-                                                       *rgbs.shape[2:]))
+            seg_logits = models.seg_model(
+                rgbs.reshape(E * ncams, *rgbs.shape[2:]).to(cdt))
             sem_prob = torch.softmax(seg_logits.float(), dim=-1)
             pred_sem = (sem_prob[..., 1:] * (1.0 - sem_prob[..., :1])
-                        ).reshape(E, ncams, *sem_prob.shape[1:3], n_sem)
+                        ).to(cdt).reshape(E, ncams, *sem_prob.shape[1:3],
+                                          n_sem)
         with record_function("agent/paint"):
             painted = point_painting(fused[..., :3], pred_sem, rigs,
                                      valid=fused_valid)
-        fused_painted = torch.cat([fused, painted], dim=-1)      # (E, Pb, Df)
+        fused_painted = torch.cat([fused, painted.float()], dim=-1)
 
         # ---- ring buffer push (skipped on the very first frame) ---------
         push = num_frames >= 2
@@ -274,12 +285,13 @@ def build_agent(cfg: LAVConfig, *, num_ego: int = 1, max_points: int = 0,
         # ---- brake net ---------------------------------------------------
         with record_function("agent/brake"):
             wide = torch.cat([rgbs[:, i] for i in range(ncams)], dim=2)
-            pred_bra = models.bra_model(wide, obs["tel_rgb"]).float()
+            pred_bra = models.bra_model(wide.to(cdt),
+                                        obs["tel_rgb"].to(cdt)).float()
 
         # ---- perception + planning --------------------------------------
         with record_function("agent/lidar"):
-            feats, hm, size, orim, bev = models.lidar_model(stacked,
-                                                            stacked_valid)
+            feats, hm, size, orim, bev = models.lidar_model(
+                stacked.to(cdt), stacked_valid, use_pallas=use_pallas)
         with record_function("agent/decode"):
             dets = det_inference(
                 torch.sigmoid(hm.float()), size.float(), orim.float(),

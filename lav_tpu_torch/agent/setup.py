@@ -5,6 +5,14 @@ Weights come from the port's own initialisers on a seeded
 `torch.Generator` (built on the CPU, then moved).  Observations are drawn
 with numpy, ego e from `default_rng(seed + e)`, in the same order and
 ranges as lav_tpu's setup, so ego 0 of seed 0 sees lav_tpu's observation.
+
+quant="mxu" is bench.py's production configuration: the lidar model and
+the planner's crop ResNet are quantized (`nn/quant.py`), then calibrated
+as lav_tpu calibrates them, eagerly in f32 observer mode, here over two
+ticks of a one-ego agent on seeded observations, on the target device.
+lav_tpu's committed scales (`artifacts/calib/`) belong to JAX-initialised
+weights; `utils/weights.py::load_calibration` applies them to converted
+lav_tpu params.
 """
 
 from __future__ import annotations
@@ -14,9 +22,12 @@ import torch
 
 from lav_tpu_torch.agent.agent import AgentModels, build_agent
 from lav_tpu_torch.config import v2_config
+from lav_tpu_torch.nn import quant as Q
 from lav_tpu_torch.utils.device import resolve_device
 
 TEL_HW = (192, 480)
+CALIB_SEED = 42
+CALIB_TICKS = 2
 
 
 def make_obs(num_ego: int, max_points: int, img_hw=(288, 256), seed: int = 0,
@@ -47,17 +58,47 @@ def make_obs(num_ego: int, max_points: int, img_hw=(288, 256), seed: int = 0,
     )
 
 
+def calibrate_agent(models, cfg, max_points: int, img_hw, device):
+    """Static activation scales for every int8 conv of `models`: CALIB_TICKS
+    ticks of a one-ego f32 agent (production pillar route) in observer
+    mode; the planner's crops stay float there, so its conv1 observes
+    them."""
+    init_state, step = build_agent(cfg, max_points=max_points,
+                                   rgb_hw=img_hw, device=device)
+
+    def run():
+        state = init_state()
+        for t in range(CALIB_TICKS):
+            obs = make_obs(1, max_points, img_hw, CALIB_SEED + t, device)
+            _, state, _ = step(models, state, obs)
+
+    Q.calibrate(run)
+    return models
+
+
 def v2_agent_setup(max_points: int = 8192, num_ego: int = 1,
-                   img_hw=(288, 256), device=None, seed: int = 0):
+                   img_hw=(288, 256), device=None, seed: int = 0,
+                   quant=None, compute_dtype=None, use_pallas: bool = False):
     """Returns (step, models, state, obs, cfg) for the full-width v2 agent
     (3 cameras at img_hw, the 192x480 telephoto image) on `device`
-    (default `cuda`; raises without a card unless `device='cpu'`)."""
+    (default `cuda`; raises without a card unless `device='cpu'`).
+    quant None or "mxu"; compute_dtype None (f32) or torch.bfloat16;
+    use_pallas picks the pillar route (ops/pillar.py)."""
+    if quant not in (None, "mxu"):
+        raise ValueError(f"quant={quant!r}: None or 'mxu'")
     dev = resolve_device(device)
     cfg = v2_config()
     init_state, step = build_agent(cfg, num_ego=num_ego,
                                    max_points=max_points, rgb_hw=img_hw,
-                                   device=dev)
+                                   compute_dtype=compute_dtype,
+                                   use_pallas=use_pallas, device=dev)
     gen = torch.Generator().manual_seed(seed)
-    models = AgentModels(cfg, brake_version=2, gen=gen).to(dev).eval()
+    models = AgentModels(cfg, brake_version=2, gen=gen)
+    if quant == "mxu":
+        Q.quantize_tree(models.lidar_model)
+        Q.quantize_tree(models.uniplanner)
+    models = models.to(dev).eval()
+    if quant:
+        calibrate_agent(models, cfg, max_points, img_hw, dev)
     obs = make_obs(num_ego, max_points, img_hw, seed, dev)
     return step, models, init_state(), obs, cfg

@@ -11,6 +11,12 @@ hinge max(0, 1 - |pos - tap|).  That is exact zero padding with partial
 weights at the border, and exact zeros for taps wholly outside.  Weights
 are computed in f32 and cast to the source dtype; the four products are
 accumulated in f32 and the sum is cast to the source dtype.
+
+With `q8_x_scale` the crops come out int8, quantized from the f32 sum
+(the Pallas kernel's q8 epilogue, `warp_pallas.py:164-168`): q =
+clip(round(acc * inv_s), +-127), inv_s = 1/x_scale in f32, round half to
+even.  On the card that is kernel `crop_shared_q8`; the plain version is
+`grid_sample_shared_q8`.
 """
 
 from __future__ import annotations
@@ -54,9 +60,8 @@ def crop_theta(rel_locs, rel_oris, H, W, pixels_per_meter, crop_size,
     return torch.stack([row0, row1], dim=-2)
 
 
-def grid_sample_shared(src, grid):
-    """Plain version of kernel `crop_shared`: src (B, H, W, C), grid
-    (B, K, Ho, Wo, 2) f32 -> (B, K, Ho, Wo, C) in src's dtype."""
+def _bilinear_f32(src, grid):
+    """The f32 bilinear sums, (B, K, Ho, Wo, C) f32."""
     B, H, W, C = src.shape
     _, K, Ho, Wo, _ = grid.shape
     ix = (grid[..., 0] + 1.0) * 0.5 * (W - 1)
@@ -74,17 +79,40 @@ def grid_sample_shared(src, grid):
             vals = flat[bidx, base + (dy * W + dx)].float()
             w = (wy[dy] * wx[dx]).to(src.dtype).float().reshape(B, -1, 1)
             out = vals * w if out is None else out + vals * w
-    return out.to(src.dtype).reshape(B, K, Ho, Wo, C)
+    return out.reshape(B, K, Ho, Wo, C)
+
+
+def grid_sample_shared(src, grid):
+    """Plain version of kernel `crop_shared`: src (B, H, W, C), grid
+    (B, K, Ho, Wo, 2) f32 -> (B, K, Ho, Wo, C) in src's dtype."""
+    return _bilinear_f32(src, grid).to(src.dtype)
+
+
+def inverse_scale(x_scale):
+    """inv_s = 1/x_scale in f32, as the Pallas wrapper computes it."""
+    return (1.0 / x_scale.float()).reshape(())
+
+
+def grid_sample_shared_q8(src, grid, inv_s):
+    """Plain version of kernel `crop_shared_q8`: the f32 sums quantized,
+    clip(round(acc * inv_s), +-127) as int8."""
+    acc = _bilinear_f32(src, grid)
+    return torch.clamp(torch.round(acc * inv_s), -127, 127).to(torch.int8)
 
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
-def crop_shared(src, grid):
+def crop_shared(src, grid, q8_x_scale=None):
     """Kernel `crop_shared`: K bilinear crops per batch item from that
     item's own source.  src (B, H, W, C) f32 or bf16, grid (B, K, Ho, Wo, 2)
-    f32 -> (B, K, Ho, Wo, C).  CPU tensors take `grid_sample_shared`."""
+    f32 -> (B, K, Ho, Wo, C) in src's dtype, or int8 with `q8_x_scale` (a
+    0-dim f32 tensor; kernel `crop_shared_q8`).  CPU tensors take
+    `grid_sample_shared` / `grid_sample_shared_q8`."""
+    q8 = q8_x_scale is not None
     if src.device.type == "cpu":
+        if q8:
+            return grid_sample_shared_q8(src, grid, inverse_scale(q8_x_scale))
         return grid_sample_shared(src, grid)
     if src.device.type != "cuda" or grid.device != src.device:
         raise ValueError(f"crop_shared: src on {src.device}, grid on "
@@ -102,26 +130,36 @@ def crop_shared(src, grid):
     _, K, Ho, Wo, _ = grid.shape
     if H < 2 or W < 2:
         raise ValueError("crop_shared: source must be at least 2x2")
-    out = torch.empty((B, K, Ho, Wo, C), dtype=src.dtype, device=src.device)
+    out = torch.empty((B, K, Ho, Wo, C),
+                      dtype=torch.int8 if q8 else src.dtype,
+                      device=src.device)
     vec = 16 // src.element_size()
     if C % vec or src.data_ptr() % 16 or out.data_ptr() % 16:
         vec = 1
-    fn = getattr(_lib(), f"crop_shared_{_DTYPES[src.dtype]}")
+    name = "crop_shared_q8" if q8 else "crop_shared"
+    fn = getattr(_lib(), f"{name}_{_DTYPES[src.dtype]}")
+    args = [src.data_ptr(), grid.data_ptr(), out.data_ptr()]
+    if q8:
+        if q8_x_scale.device != src.device:
+            raise ValueError("crop_shared: q8_x_scale on "
+                             f"{q8_x_scale.device}, src on {src.device}")
+        inv_s = inverse_scale(q8_x_scale).reshape(1).contiguous()
+        args.append(inv_s.data_ptr())
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream(src.device).cuda_stream
-        err = fn(src.data_ptr(), grid.data_ptr(), out.data_ptr(), B, H, W,
-                 C, K, Ho, Wo, vec, stream)
-    native.check(err, "crop_shared")
-    native.LAUNCHES["crop_shared"] += 1
+        err = fn(*args, B, H, W, C, K, Ho, Wo, vec, stream)
+    native.check(err, name)
+    native.LAUNCHES[name] += 1
     return out
 
 
 def _lib():
     lib = native.load("crop_shared")
-    for name in ("crop_shared_f32", "crop_shared_bf16"):
+    for name, nptr in (("crop_shared_f32", 3), ("crop_shared_bf16", 3),
+                       ("crop_shared_q8_f32", 4), ("crop_shared_q8_bf16", 4)):
         fn = getattr(lib, name)
         if fn.argtypes is None:
-            fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
+            fn.argtypes = ([ctypes.c_void_p] * nptr + [ctypes.c_int] * 8
                            + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
     return lib
@@ -129,12 +167,14 @@ def _lib():
 
 def crop_feature_shared(features, rel_locs, rel_oris, *,
                         pixels_per_meter: float, crop_size: int,
-                        offset_x: float = 0.0, offset_y: float = 0.75):
+                        offset_x: float = 0.0, offset_y: float = 0.75,
+                        q8_x_scale=None):
     """K rotated crops from one feature map per batch item.
 
     features (H, W, C) with rel_locs (K, 2) meters and rel_oris (K,) radians
     -> (K, crop, crop, C); or features (B, H, W, C) with (B, K, 2) / (B, K)
-    -> (B, K, crop, crop, C).  One `crop_shared` launch for all crops."""
+    -> (B, K, crop, crop, C).  One `crop_shared` launch for all crops;
+    int8 crops with `q8_x_scale`."""
     single = features.ndim == 3
     if single:
         features, rel_locs, rel_oris = (features[None], rel_locs[None],
@@ -145,5 +185,5 @@ def crop_feature_shared(features, rel_locs, rel_oris, *,
                        crop_size, offset_x, offset_y)
     grid = affine_grid(theta, crop_size, crop_size)
     grid = grid.reshape(B, K, crop_size, crop_size, 2).contiguous()
-    crops = crop_shared(features.contiguous(), grid)
+    crops = crop_shared(features.contiguous(), grid, q8_x_scale)
     return crops[0] if single else crops

@@ -6,6 +6,12 @@ orientation, BEV segmentation).  LAV's Conv -> ReLU -> BN order (BN eps
 1e-3) is kept for weight parity.  lav_tpu's merged-head and 128-lane
 canvas forms are TPU layout tactics with the same math; here each head
 runs on its own.
+
+Under int8 (`nn/quant.py`) the backbone convs and each head's 3x3 conv
+run `conv2d_int8`; the entry block `conv1_0`, the `upconv*` blocks and
+each head's `up` stay float.  lav_tpu merges the heads into one conv that
+quantizes its shared input once, with the max of the four heads'
+activation scales; each head here quantizes with that same max.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from lav_tpu_torch.nn import layers as L
+from lav_tpu_torch.nn import quant
 from lav_tpu_torch.ops.pillar import PointPillar
 
 _BN_EPS = 1e-3
@@ -53,8 +60,8 @@ class Head(nn.Module):
         self.up = L.ConvTranspose2d(hidden, cout, 3, 2, 1, 1, bias=True,
                                     gen=gen)
 
-    def forward(self, x):
-        return self.up(self.bn(F.relu(self.conv(x))))
+    def forward(self, x, x_scale=None):
+        return self.up(self.bn(F.relu(self.conv(x, x_scale=x_scale))))
 
 
 class Backbone(nn.Module):
@@ -87,9 +94,11 @@ class Backbone(nn.Module):
 
 
 class LidarModel(nn.Module):
-    """forward(points (B, P, D), valid (B, P)) -> (features (B, ny/2, nx/2,
-    6nf) NHWC, heatmap logits, sizemaps, orimaps, bev_seg), the four maps
-    channel-first (B, c, ny, nx); bev_seg through a sigmoid in f32."""
+    """forward(points (B, P, D), valid (B, P), use_pallas=False) ->
+    (features (B, ny/2, nx/2, 6nf) NHWC, heatmap logits, sizemaps,
+    orimaps, bev_seg), the four maps channel-first (B, c, ny, nx) in the
+    points' dtype; bev_seg through a sigmoid in f32.  `use_pallas` picks
+    the pillar route (ops/pillar.py)."""
 
     def __init__(self, num_input: int, num_features: Sequence[int], *,
                  min_x: float, max_x: float, min_y: float, max_y: float,
@@ -105,11 +114,16 @@ class LidarModel(nn.Module):
         self.ori_head = Head(6 * nf, 2, gen=gen)
         self.seg_head = Head(6 * nf, 3, gen=gen)
 
-    def forward(self, points, valid):
-        canvas = self.point_pillar(points, valid)
+    def forward(self, points, valid, use_pallas: bool = False):
+        canvas = self.point_pillar(points, valid, use_pallas=use_pallas)
         feats = self.backbone(L.nhwc_to_nchw(canvas))
-        hm = self.center_head(feats)
-        box = self.box_head(feats)
-        ori = self.ori_head(feats)
-        seg = torch.sigmoid(self.seg_head(feats).float())
-        return L.nchw_to_nhwc(feats), hm, box, ori, seg
+        heads = (self.center_head, self.box_head, self.ori_head,
+                 self.seg_head)
+        x_scale = None
+        if all(h.conv.w_int8 is not None for h in heads):
+            x_nhwc = L.nchw_to_nhwc(feats)
+            x_scale = torch.stack([quant.act_scale(h.conv, x_nhwc)
+                                   for h in heads]).max()
+        hm, box, ori, seg = (h(feats, x_scale=x_scale) for h in heads)
+        return (L.nchw_to_nhwc(feats), hm, box, ori,
+                torch.sigmoid(seg.float()))

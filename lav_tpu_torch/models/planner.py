@@ -9,6 +9,11 @@ LAV's quirk is kept: forecasts of other vehicles use the EGO cast bank.
 `uniplanner_infer` is batched over egos and always takes lav_tpu's folded
 form: the ego crop joins the K detection crops, so one `crop_shared`
 launch and one (K+1)-batch ResNet pass serve every crop of every ego.
+When the crop ResNet's `conv1` is int8 with a calibrated `x_scale`, the
+crops come out int8, quantized with that scale in the crop kernel's
+epilogue (lav_tpu `planner.py:551-568`), and `conv1` consumes them as
+they are; in calibration the crops stay float so that `conv1` observes
+them.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from lav_tpu_torch.config import LAVConfig
 from lav_tpu_torch.core.geometry import transform_points
 from lav_tpu_torch.core.warp import crop_feature_shared
 from lav_tpu_torch.nn import layers as L
+from lav_tpu_torch.nn import quant
 from lav_tpu_torch.nn.resnet import resnet18, resnet_apply
 
 EMBD = 512  # resnet18 layer4 channels / plan GRU hidden size
@@ -118,10 +124,13 @@ def uniplanner_infer(core: UniPlanner, cfg: LAVConfig, features, det, cmd,
 
     all_locs = torch.cat([olocs, olocs.new_zeros((B, 1, 2))], dim=1)
     all_oris = torch.cat([ooris, ooris.new_zeros((B, 1))], dim=1)
+    c1 = core.lidar_conv_emb.conv1
+    q8 = (c1.x_scale if c1.w_int8 is not None and not quant.calibrating()
+          else None)
     crops = crop_feature_shared(features, all_locs, all_oris,
                                 pixels_per_meter=ppm / 2,
                                 crop_size=cfg.crop_size,
-                                offset_y=cfg.y_offset)
+                                offset_y=cfg.y_offset, q8_x_scale=q8)
     embd = conv_emb(core.lidar_conv_emb,
                     crops.reshape(B * (K + 1), *crops.shape[2:]))
     all_cast = cast(core, embd, T).reshape(B, K + 1, cfg.num_cmds, T, 2)

@@ -1,6 +1,8 @@
 """Single-learned-query multi-head attention pooling of the v2 brake net
 (counterpart of `lav_tpu/nn/attention.py`): one learned query attends over
-the flattened feature map, with 1-D sinusoidal positions added to keys."""
+the flattened feature map, with 1-D sinusoidal positions added to keys.
+As in lav_tpu, the f32 query and positions promote a bf16 input: keys,
+scores, softmax and output are f32."""
 
 from __future__ import annotations
 
@@ -43,9 +45,9 @@ class AttentionPool(nn.Module):
         k, v = kv.chunk(2, dim=-1)
         k = k.reshape(B, n, nh, dh).transpose(1, 2)
         v = v.reshape(B, n, nh, dh).transpose(1, 2)
-        k = k + positional_encoding_1d(dh, n, x.device).to(k.dtype)
-        q = self.q.to(x.dtype).expand(B, nh, 1, dh)
+        k = k.float() + positional_encoding_1d(dh, n, x.device)
+        q = self.q.float().expand(B, nh, 1, dh)
         dots = torch.matmul(q, k.transpose(-1, -2)) * (dh ** -0.5)
         attn = torch.softmax(dots, dim=-1)
-        out = torch.matmul(attn, v)
+        out = torch.matmul(attn, v.float())
         return out.transpose(1, 2).reshape(B, D)

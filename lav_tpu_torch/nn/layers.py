@@ -24,6 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from lav_tpu_torch.nn import quant
+
 
 def _uniform(gen, shape, bound: float) -> torch.Tensor:
     return (torch.rand(shape, generator=gen) * 2.0 - 1.0) * bound
@@ -43,7 +45,8 @@ def _pair(v):
 
 
 class Linear(nn.Module):
-    """y = x @ w.T + b with w (out, in)."""
+    """y = x @ w.T + b with w (out, in); the bias is added to the rounded
+    product, as lav_tpu's `x @ w + b` does (it matters in bf16)."""
 
     def __init__(self, cin: int, cout: int, bias: bool = True, gen=None):
         super().__init__()
@@ -52,26 +55,53 @@ class Linear(nn.Module):
                   if bias else None)
 
     def forward(self, x):
-        b = None if self.b is None else self.b.to(x.dtype)
-        return F.linear(x, self.w.to(x.dtype), b)
+        y = F.linear(x, self.w.to(x.dtype))
+        return y if self.b is None else y + self.b.to(x.dtype)
 
 
 class Conv2d(nn.Module):
-    """torch.nn.Conv2d semantics with symmetric integer/tuple zero padding."""
+    """torch.nn.Conv2d semantics with symmetric integer/tuple zero padding.
+
+    `quantize_` switches it to lav_tpu's int8 form (`nn/quant.py`): the
+    float `w` goes, buffers `w_int8` (O, KH, KW, I), `w_scale` (O,) and,
+    once calibrated, `x_scale` () take its place, and forward runs
+    `quant.conv2d_int8` (an int8 input is consumed as it is)."""
 
     def __init__(self, cin: int, cout: int, ksize, stride=1, padding=0,
                  dilation=1, bias: bool = True, gen=None):
         super().__init__()
         kh, kw = _pair(ksize)
         fan_in = cin * kh * kw
+        self.cin, self.cout, self.ksize = cin, cout, (kh, kw)
         self.w = nn.Parameter(
             _uniform(gen, (cout, cin, kh, kw), _kaiming_bound(fan_in)))
         self.b = (nn.Parameter(_uniform(gen, (cout,), _bias_bound(fan_in)))
                   if bias else None)
         self.stride, self.padding = _pair(stride), _pair(padding)
         self.dilation = _pair(dilation)
+        self.register_buffer("w_int8", None)
+        self.register_buffer("w_scale", None)
+        self.register_buffer("x_scale", None)
 
-    def forward(self, x):
+    def quantize_(self, w_int8=None, w_scale=None):
+        """Switch to int8 weights, quantized from `w` unless given."""
+        if w_int8 is None:
+            w_int8, w_scale = quant.quantize_conv(self.w)
+        kh, kw = self.ksize
+        if tuple(w_int8.shape) != (self.cout, kh, kw, self.cin) or \
+                w_int8.dtype != torch.int8:
+            raise ValueError(f"int8 weight {w_int8.dtype} "
+                             f"{tuple(w_int8.shape)} for a conv "
+                             f"{self.cin}->{self.cout} {kh}x{kw}")
+        self.w = None
+        self.w_int8 = w_int8
+        self.w_scale = w_scale.float()
+        return self
+
+    def forward(self, x, x_scale=None):
+        if self.w_int8 is not None:
+            y = quant.conv2d_int8(self, nchw_to_nhwc(x), x_scale=x_scale)
+            return nhwc_to_nchw(y)
         b = None if self.b is None else self.b.to(x.dtype)
         return F.conv2d(x, self.w.to(x.dtype), b, self.stride, self.padding,
                         self.dilation)

@@ -5,6 +5,9 @@ Submodule names follow lav_tpu's params (`conv1`, `bn1`, `layer{s}_{b}`
 blocks with `conv1/bn1/conv2/bn2` and `down_conv/down_bn`).  lav_tpu's
 space-to-depth rewrite of the entry conv is a TPU layout tactic computing
 the same products; here the entry conv is the plain 7x7 stride-2 conv.
+Under int8 (`nn/quant.py`) an int8 `conv1` consumes int8 input (the
+planner's q8 crops) as it is and emits bf16; every later layer runs in
+bf16.
 """
 
 from __future__ import annotations

@@ -1,14 +1,27 @@
 """Static-shape PointPillars featurizer, inference path (counterpart of
-`lav_tpu/ops/pillar.py` under `use_pallas=True`).
+`lav_tpu/ops/pillar.py`, `train=False`).
 
 Points are padded to a fixed capacity with a validity mask; pillar id =
 canvas_row * nx + canvas_col, with `ny*nx` the dump slot of invalid points;
-a batch is folded into the segment space (pid + b * (ny*nx + 1)).  The
-per-pillar point mean (decoration) is one `index_add_` + gather; the
-per-pillar max over the MLP features is kernel `pillar_scatter_max`
-(csrc/pillar_scatter_max.cu), the port of lav_tpu's Pallas
-`pillar_scatter_max_pallas`.  Masked points carry NEG so they never win
-the max, and untouched pillars come out as exactly 0 (LAV's zero canvas).
+a batch is folded into the segment space.  The per-pillar point mean
+(decoration) sums [xyz, 1] in f32 with kernel `scatter_add` and gathers
+sum / max(count, 1) back to the points.  Untouched pillars come out as
+exactly 0 (LAV's zero canvas).  Both of lav_tpu's routes are here:
+
+  use_pallas=False (production, the default): the canvas is kernel
+    `scatter_max`, a zero-init max of the non-negative post-ReLU features
+    in the compute dtype; every invalid point goes to one dump row past
+    the B * ny * nx canvas rows, which is sliced off.  lav_tpu sorts the
+    points first, a TPU tactic for its scatters; the sort changes only the
+    order of the f32 decoration sums.
+  use_pallas=True: each item has its own dump slot (pid + b * (ny*nx+1));
+    masked points carry NEG and the canvas is kernel `pillar_scatter_max`
+    (NEG-init, NEG -> 0), the port of `pillar_scatter_max_pallas`; f32.
+
+Kernels `scatter_max` and `scatter_add` (csrc/pillar_scatter.cu) port
+lav_tpu's Pallas `scatter_pallas` (ops/pillar_pallas2.py), and
+`pillar_scatter_max` (csrc/pillar_scatter_max.cu) its
+`pillar_scatter_max_pallas` (ops/pillar_pallas.py).
 """
 
 from __future__ import annotations
@@ -35,11 +48,15 @@ def compute_pillar_ids(points, valid, *, min_x: float, max_x: float,
     ix, iy the clamped integer grid coords.  The forward (x) axis runs up
     the canvas rows, the lateral (y) axis along the columns.  Coordinates
     are clamped in float before the integer cast (a huge float has no
-    defined int32 value in torch)."""
+    defined int32 value in torch); the cell index is computed in the
+    points' dtype, as lav_tpu does, and clamped in f32, which holds every
+    index (bf16 would round 319 to 320)."""
     x, y = points[..., 0], points[..., 1]
     keep = valid & (x >= min_x) & (x < max_x) & (y >= min_y) & (y < max_y)
-    ix = torch.clamp(torch.floor((x - min_x) * pixels_per_meter), 0, ny - 1)
-    iy = torch.clamp(torch.floor((y - min_y) * pixels_per_meter), 0, nx - 1)
+    ix = torch.clamp(torch.floor((x - min_x) * pixels_per_meter).float(), 0,
+                     ny - 1)
+    iy = torch.clamp(torch.floor((y - min_y) * pixels_per_meter).float(), 0,
+                     nx - 1)
     ix = torch.nan_to_num(ix).to(torch.int32)
     iy = torch.nan_to_num(iy).to(torch.int32)
     row = ny - 1 - ix
@@ -49,14 +66,15 @@ def compute_pillar_ids(points, valid, *, min_x: float, max_x: float,
 
 def segment_mean_gather(values, pid, keep, num_segments: int):
     """Per-segment mean of values (N, D) over pid (N,), gathered back to
-    the points -> (N, D).  Invalid points contribute nothing."""
+    the points -> (N, D) in values' dtype.  [values, 1] of the valid points
+    sum in f32 (kernel `scatter_add`); mean = sum / max(count, 1)."""
     v = torch.where(keep[:, None], values, torch.zeros_like(values))
-    packed = torch.cat([v, keep.to(values.dtype)[:, None]], dim=-1)
-    acc = values.new_zeros((num_segments, packed.shape[-1]))
-    acc.index_add_(0, pid.long(), packed)
+    packed = torch.cat([v.float(), keep.float()[:, None]], dim=-1)
+    acc = scatter_add(packed, pid.to(torch.int32).contiguous(),
+                      num_segments)
     D = values.shape[-1]
     means = acc[:, :D] / torch.clamp(acc[:, D:D + 1], min=1.0)
-    return means[pid.long()]
+    return means[pid.long()].to(values.dtype)
 
 
 def decorate_points(points, pid, keep, ix, iy, *, min_x: float, min_y: float,
@@ -125,10 +143,94 @@ def _lib():
     return lib
 
 
+def scatter_max_plain(feat, pid, num_segments: int):
+    """Plain version of kernel `scatter_max`: feat (N, C) f32 or bf16,
+    pid (N,) -> (num_segments, C): a zero canvas raised to each point's
+    features (max(0, max over points)); ids outside the range are
+    dropped."""
+    C = feat.shape[-1]
+    canvas = feat.new_zeros((num_segments, C))
+    ok = (pid >= 0) & (pid < num_segments)
+    canvas.scatter_reduce_(0, pid.long()[ok][:, None].expand(-1, C),
+                           feat[ok], "amax", include_self=True)
+    return canvas
+
+
+def scatter_add_plain(feat, pid, num_segments: int):
+    """Plain version of kernel `scatter_add`: feat (N, C) f32, pid (N,)
+    -> (num_segments, C) f32 per-segment sums; ids outside the range are
+    dropped."""
+    ok = (pid >= 0) & (pid < num_segments)
+    acc = feat.new_zeros((num_segments, feat.shape[-1]))
+    return acc.index_add_(0, pid.long()[ok], feat[ok])
+
+
+_K3_DTYPES = {("max", torch.bfloat16): "scatter_max_bf16",
+              ("max", torch.float32): "scatter_max_f32",
+              ("add", torch.float32): "scatter_add_f32"}
+
+
+def _k3(op: str, feat, pid, num_segments: int):
+    name = f"scatter_{op}"
+    if feat.device.type != "cuda" or pid.device != feat.device:
+        raise ValueError(f"{name}: feat on {feat.device}, pid on "
+                         f"{pid.device}; both must be on one CUDA device")
+    fn_name = _K3_DTYPES.get((op, feat.dtype))
+    if fn_name is None or pid.dtype != torch.int32:
+        raise TypeError(f"{name}: feat {feat.dtype}, pid {pid.dtype} (int32)")
+    if feat.ndim != 2 or pid.shape != feat.shape[:1]:
+        raise ValueError(f"{name}: feat {tuple(feat.shape)}, pid "
+                         f"{tuple(pid.shape)}")
+    if not (feat.is_contiguous() and pid.is_contiguous()):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    N, C = feat.shape
+    if feat.dtype == torch.bfloat16 and (C % 2 or feat.data_ptr() % 4):
+        raise ValueError(f"{name}: bf16 rows must be channel pairs")
+    out = feat.new_zeros((num_segments, C))
+    fn = getattr(_lib_k3(), fn_name)
+    with torch.cuda.device(feat.device):
+        stream = torch.cuda.current_stream(feat.device).cuda_stream
+        err = fn(feat.data_ptr(), pid.data_ptr(), out.data_ptr(), N, C,
+                 num_segments, stream)
+    native.check(err, name)
+    native.LAUNCHES[name] += 1
+    return out
+
+
+def scatter_max(feat, pid, num_segments: int):
+    """Kernel `scatter_max` (contract of `scatter_max_plain`), the canvas
+    of the production route.  CPU tensors take the plain version."""
+    if feat.device.type == "cpu":
+        return scatter_max_plain(feat, pid, num_segments)
+    return _k3("max", feat, pid, num_segments)
+
+
+def scatter_add(feat, pid, num_segments: int):
+    """Kernel `scatter_add` (contract of `scatter_add_plain`), the
+    decoration sums.  CPU tensors take the plain version."""
+    if feat.device.type == "cpu":
+        return scatter_add_plain(feat, pid, num_segments)
+    return _k3("add", feat, pid, num_segments)
+
+
+def _lib_k3():
+    lib = native.load("pillar_scatter")
+    for fn_name in _K3_DTYPES.values():
+        fn = getattr(lib, fn_name)
+        if fn.argtypes is None:
+            fn.argtypes = [ctypes.c_void_p] * 3 + [
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+    return lib
+
+
 class PointPillar(nn.Module):
     """Point MLP (linear -> eval BN -> ReLU per layer) + canvas max.
 
-    forward(points (B, P, D), valid (B, P)) -> canvas (B, ny, nx, C)."""
+    forward(points (B, P, D), valid (B, P), use_pallas=False) -> canvas
+    (B, ny, nx, C) in points' dtype (see the module note for the two
+    routes)."""
 
     def __init__(self, num_input: int, num_features: Sequence[int], *,
                  min_x: float, max_x: float, min_y: float, max_y: float,
@@ -145,26 +247,33 @@ class PointPillar(nn.Module):
         self.nx = int((max_x - min_x) * pixels_per_meter)
         self.ny = int((max_y - min_y) * pixels_per_meter)
 
-    def forward(self, points, valid):
+    def forward(self, points, valid, use_pallas: bool = False):
         nx, ny = self.nx, self.ny
-        S = ny * nx + 1
+        G = ny * nx
         B, P, D = points.shape
         pid, keep, ix, iy = compute_pillar_ids(points, valid, nx=nx, ny=ny,
                                                **self.geo)
         offs = torch.arange(B, dtype=pid.dtype, device=pid.device)[:, None]
-        pid_flat = (pid + offs * S).reshape(-1)
+        if use_pallas:
+            S = B * (G + 1)
+            pid_flat = (pid + offs * (G + 1)).reshape(-1)
+        else:
+            S = B * G + 1
+            pid_flat = torch.where(keep, pid + offs * G,
+                                   torch.full_like(pid, B * G)).reshape(-1)
+        pid_flat = pid_flat.contiguous()
+        keep = keep.reshape(-1)
         feat = decorate_points(
-            points.reshape(-1, D), pid_flat, keep.reshape(-1),
-            ix.reshape(-1), iy.reshape(-1), min_x=self.geo["min_x"],
-            min_y=self.geo["min_y"],
-            pixels_per_meter=self.geo["pixels_per_meter"],
-            num_segments=B * S)
+            points.reshape(-1, D), pid_flat, keep, ix.reshape(-1),
+            iy.reshape(-1), min_x=self.geo["min_x"], min_y=self.geo["min_y"],
+            pixels_per_meter=self.geo["pixels_per_meter"], num_segments=S)
         for i in range(self.num_layers):
             feat = getattr(self, f"linear_{i}")(feat)
             feat = F.relu(getattr(self, f"bn_{i}")(feat))
-        feat = torch.where(keep.reshape(-1, 1), feat,
-                           torch.full_like(feat, NEG))
         C = feat.shape[-1]
-        canvas = pillar_scatter_max(feat.contiguous(), pid_flat.contiguous(),
-                                    B * S)
-        return canvas.reshape(B, S, C)[:, :ny * nx].reshape(B, ny, nx, C)
+        if not use_pallas:
+            canvas = scatter_max(feat.contiguous(), pid_flat, S)
+            return canvas[:B * G].reshape(B, ny, nx, C)
+        feat = torch.where(keep[:, None], feat, torch.full_like(feat, NEG))
+        canvas = pillar_scatter_max(feat.contiguous(), pid_flat, S)
+        return canvas.reshape(B, G + 1, C)[:, :G].reshape(B, ny, nx, C)

@@ -7,7 +7,8 @@ starts one `nvcc` per source, all at once.  A library is rebuilt when its
 source is newer.
 
 `LAUNCHES` counts, per kernel, the wrapper calls that launched it on the
-card; `reset_launches` sets every count to 0.
+card; `reset_launches` sets every count to 0.  A source may hold several
+kernels (`pillar_scatter.cu` holds the zero-init max and the add).
 """
 
 from __future__ import annotations
@@ -26,7 +27,12 @@ BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-KERNELS = ("crop_shared", "pillar_scatter_max")
+SOURCES = ("crop_shared", "pillar_scatter_max", "pillar_scatter",
+           "conv2d_int8")
+KERNELS = ("crop_shared", "crop_shared_q8",    # crop_shared.cu
+           "pillar_scatter_max",                 # pillar_scatter_max.cu
+           "scatter_max", "scatter_add",         # pillar_scatter.cu
+           "conv2d_int8")                        # conv2d_int8.cu
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _libs: dict = {}
@@ -58,7 +64,7 @@ def _stale(name: str) -> bool:
     return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
 
 
-def build_all(names=KERNELS) -> dict:
+def build_all(names=SOURCES) -> dict:
     """Compile every stale kernel in parallel; returns {name: ptxas log}.
     Raises with the compiler's output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -86,7 +92,7 @@ def build_all(names=KERNELS) -> dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel `name`, built first if needed."""
+    """The loaded library of source `name`, built first if needed."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:

@@ -6,7 +6,9 @@ parameter names equal the tree's keys, so the walk is structural; each
 leaf layer converts its arrays to PyTorch's layout:
 
   Linear          w (in, out)            -> (out, in)
-  Conv2d          w HWIO (kh, kw, i, o)  -> OIHW
+  Conv2d          w HWIO (kh, kw, i, o)  -> OIHW; or lav_tpu's int8 form
+                  (nn/quant.py): w_int8 HWIO int8 -> OHWI, w_scale (o,),
+                  x_scale () when calibrated, and the conv turns int8
   ConvTranspose2d w HWIO of the flipped equivalent conv -> (i, o, kh, kw)
   BatchNorm       scale, bias, mean, var -> as they are
   GRU             w_ih (I, 3H), w_hh (H, 3H) -> (3H, I), (3H, H);
@@ -16,20 +18,32 @@ leaf layer converts its arrays to PyTorch's layout:
 
 Keys a module lists in `jax_unused` (training-only parts) are skipped.
 Every other key must have a counterpart and every parameter and buffer
-must be filled, or the load raises.
+must be filled, or the load raises.  int8 leaves stay int8; every other
+leaf is converted to f32.
+
+`load_calibration` sets static activation scales from lav_tpu's
+calibration JSON (`artifacts/calib/*.json`: lav_tpu param path -> scale).
 """
 
 from __future__ import annotations
+
+import json
 
 import numpy as np
 import torch
 from torch import nn
 
 from lav_tpu_torch.nn import layers as L
+from lav_tpu_torch.nn.quant import int8_convs
 
 
 def _set(t: torch.Tensor, arr, path: str, filled: set) -> None:
-    a = torch.from_numpy(np.array(arr, dtype=np.float32, copy=True))
+    arr = np.asarray(arr)
+    if (t.dtype == torch.int8) != (arr.dtype == np.int8):
+        raise TypeError(f"{path}: lav_tpu {arr.dtype} for a {t.dtype} "
+                        "tensor")
+    a = torch.from_numpy(np.array(arr, dtype=arr.dtype if arr.dtype ==
+                                  np.int8 else np.float32, copy=True))
     if tuple(a.shape) != tuple(t.shape):
         raise ValueError(f"{path}: lav_tpu shape {tuple(a.shape)} does not "
                          f"convert to {tuple(t.shape)}")
@@ -45,7 +59,19 @@ def _linear(m, d, path, filled):
 
 
 def _conv(m, d, path, filled):
-    _set(m.w, np.asarray(d["w"]).transpose(3, 2, 0, 1), path + "/w", filled)
+    if "w_int8" in d:
+        kh, kw = m.ksize
+        m.quantize_(torch.empty((m.cout, kh, kw, m.cin), dtype=torch.int8),
+                    torch.empty((m.cout,)))
+        _set(m.w_int8, np.asarray(d["w_int8"]).transpose(3, 0, 1, 2),
+             path + "/w_int8", filled)
+        _set(m.w_scale, d["w_scale"], path + "/w_scale", filled)
+        if "x_scale" in d:
+            m.x_scale = torch.empty(())
+            _set(m.x_scale, d["x_scale"], path + "/x_scale", filled)
+    else:
+        _set(m.w, np.asarray(d["w"]).transpose(3, 2, 0, 1), path + "/w",
+             filled)
     if m.b is not None:
         _set(m.b, d["b"], path + "/b", filled)
 
@@ -114,4 +140,23 @@ def load_jax_params(module: nn.Module, tree) -> nn.Module:
                + list(module.named_buffers()) if id(t) not in filled]
     if missing:
         raise KeyError(f"lav_tpu params leave these unset: {missing[:8]}")
+    return module
+
+
+def load_calibration(module: nn.Module, scales) -> nn.Module:
+    """Set each int8 conv's static `x_scale` from `scales`, a dict or the
+    path of a JSON file mapping lav_tpu param paths rooted at `module`
+    (e.g. '/uniplanner/lidar_conv_emb/conv1' for the agent's models) to
+    floats.  Raises if a key names no int8 conv."""
+    if not isinstance(scales, dict):
+        with open(scales) as f:
+            scales = json.load(f)
+    convs = dict(int8_convs(module))
+    unknown = sorted(set(scales) - set(convs))
+    if unknown:
+        raise KeyError(f"calibration keys with no int8 conv: {unknown[:8]}")
+    for path, val in scales.items():
+        conv = convs[path]
+        conv.x_scale = torch.tensor(float(val), dtype=torch.float32,
+                                    device=conv.w_scale.device)
     return module

@@ -10,6 +10,16 @@
   `__graft_entry__._v2_agent_setup(max_points=2048)` converted by the
   port's loader, against tests/golden/v2_agent_production_f32.npz at the
   golden's atol 1e-4 / rtol 1e-3;
+* the production configuration (bf16 compute, int8 "mxu" lidar model and
+  planner crop ResNet): the tiny agent, quantized by lav_tpu and
+  calibrated by the port, 3 ticks against lav_tpu live; and the full-width
+  v2 agent, 2
+  ticks, with params quantized and calibrated as
+  `__graft_entry__._v2_agent_setup` does them (the committed scales),
+  against tests/golden/v2_agent_production_int8.npz.  Both at atol/rtol
+  3e-2, the int8 golden's own: lav_tpu's CPU route crops in bf16 and
+  quantizes afterwards, the port quantizes the f32 crop sum (one step
+  apart on a few values), and bf16 rounds in other places;
 * EKF, PID and the control overrides against lav_tpu;
 * no file of lav_tpu_torch imports jax or lav_tpu, and the entry points
   raise when `cuda` is asked for on a machine without a card.
@@ -28,17 +38,19 @@ import torch
 from lav_tpu.agent import agent as JA
 from lav_tpu.agent import control as JC
 from lav_tpu.agent import ekf as JE
-from lav_tpu.config import tiny_config
+from lav_tpu.config import tiny_config, v2_config
 from lav_tpu.models.lidar import lidar_model_init
 from lav_tpu.models.planner import uniplanner_init
 from lav_tpu.models.rgb import brake_model_init, seg_model_init
+from lav_tpu.nn import quant as JQ
 from lav_tpu_torch.agent import control as TC
 from lav_tpu_torch.agent import ekf as TE
 from lav_tpu_torch.agent.agent import AgentModels, AgentState, build_agent
 from lav_tpu_torch.agent.pid import pid_make
 from lav_tpu_torch.config import tiny_config as t_tiny_config
 from lav_tpu_torch.config import v2_config as t_v2_config
-from lav_tpu_torch.utils.weights import load_jax_params
+from lav_tpu_torch.nn.quant import calibrate, int8_convs
+from lav_tpu_torch.utils.weights import load_calibration, load_jax_params
 from tests.test_agent import IMG_HW, _obs, _params
 from tests.torch_parity import assert_close
 
@@ -62,9 +74,12 @@ def _t_obs(obs_list):
             for k in obs_list[0]}
 
 
-def _run_both(jcfg, tcfg, params, version, n_ticks, obs_fn):
-    init_j, step_j = JA.build_agent(jcfg, rgb_hw=IMG_HW)
-    init_t, step_t = build_agent(tcfg, rgb_hw=IMG_HW, device="cpu")
+def _run_both(jcfg, tcfg, params, version, n_ticks, obs_fn, dtype=None):
+    init_j, step_j = JA.build_agent(
+        jcfg, rgb_hw=IMG_HW,
+        compute_dtype=None if dtype is None else jnp.bfloat16)
+    init_t, step_t = build_agent(tcfg, rgb_hw=IMG_HW, compute_dtype=dtype,
+                                 device="cpu")
     models = _models(tcfg, params, version)
     sj, st = init_j(), init_t()
     jstep = jax.jit(step_j)
@@ -211,6 +226,93 @@ def test_v2_agent_full_width_matches_production_golden():
                  golden["plan"], atol=1e-4, rtol=1e-3)
     assert_close("agent.v2_full_width.ekf", state.ekf.x[0], golden["ekf"],
                  atol=1e-4, rtol=1e-3)
+
+
+PROD_TOL = dict(atol=3e-2, rtol=3e-2)
+
+
+def _mxu(params):
+    """lav_tpu's "mxu" quantization (`__graft_entry__.py:67-76`)."""
+    q = dict(params)
+    q["lidar_model"] = JQ.quantize_tree(params["lidar_model"])
+    q["uniplanner"] = JQ.quantize_tree(params["uniplanner"])
+    return q
+
+
+def _compare_prod(tag, ticks):
+    for t, (cj, sj, aj, ct, st, at) in enumerate(ticks):
+        for f in ("steer", "throttle", "brake"):
+            assert_close(f"agent.{tag}.{f}", getattr(ct, f)[0],
+                         np.asarray(getattr(cj, f)), **PROD_TOL)
+        assert_close(f"agent.{tag}.plan", at["plan_locs"][0],
+                     aj["plan_locs"], **PROD_TOL)
+        assert_close(f"agent.{tag}.ekf", st.ekf.x[0], sj.ekf.x, **PROD_TOL)
+        assert_close(f"agent.{tag}.pred_bra", at["pred_bra"][0],
+                     aj["pred_bra"], **PROD_TOL)
+
+
+def test_tiny_agent_bf16_int8_matches_jax():
+    """lav_tpu quantizes; the port calibrates (two f32 observer ticks, as
+    its setup does; lav_tpu's eager calibration of the same ticks takes
+    ~50 s here) and lav_tpu's params take its scales; both then run the
+    same 3 ticks in bf16."""
+    cfg, tcfg = tiny_config(), t_tiny_config()
+    params = _mxu(_params(cfg))
+    models = _models(tcfg, params, 1)
+    init_t, step_t = build_agent(tcfg, rgb_hw=IMG_HW, device="cpu")
+
+    def calib():
+        state = init_t()
+        for t in range(2):
+            P = state.prev_lidar.shape[1]
+            obs = _t_obs([_obs(np.random.default_rng(90 + t), P, t)])
+            _, state, _ = step_t(models, state, obs)
+
+    calibrate(calib)
+    for path, conv in int8_convs(models):
+        node = params
+        for key in path.strip("/").split("/"):
+            node = node[key]
+        node["x_scale"] = jnp.float32(float(conv.x_scale))
+    ticks = _run_both(cfg, tcfg, params, 1, 3,
+                      lambda t, P: _obs(np.random.default_rng(t), P, t),
+                      dtype=torch.bfloat16)
+    _compare_prod("tiny_int8", ticks)
+
+
+def test_v2_agent_int8_mxu_matches_production_golden(tmp_path, monkeypatch):
+    """bench.py's configuration at full width, from lav_tpu's params
+    quantized and calibrated as `_v2_agent_setup(quant_int8="mxu")` does
+    (the committed calibration scales), 2 ticks in bf16."""
+    import __graft_entry__ as g
+
+    monkeypatch.setenv("LAV_CALIB_CACHE_DIR", str(tmp_path))
+    _, params, _, jobs, _ = g._v2_agent_setup(max_points=2048)
+    params = _mxu(params)
+    g._calibrate_v2_scales(params, v2_config(), (288, 256),
+                           allow_recalibrate=False)
+    cfg = t_v2_config()
+    models = _models(cfg, params, 2)
+    scales = {p: float(c.x_scale) for p, c in int8_convs(models)}
+    assert len(scales) == 39
+    load_calibration(models, REPO / "artifacts" / "calib"
+                     / "calib-d8158406a6645b7a9844bcb8.json")
+    assert scales == {p: float(c.x_scale) for p, c in int8_convs(models)}
+    init_state, step = build_agent(cfg, max_points=2048,
+                                   compute_dtype=torch.bfloat16, device="cpu")
+    state = init_state()
+    obs = _t_obs([jobs])
+    controls = []
+    for _ in range(2):
+        ctrl, state, aux = step(models, state, obs)
+        controls.append([float(c[0]) for c in ctrl])
+    golden = np.load(os.path.join(GOLDEN, "v2_agent_production_int8.npz"))
+    assert_close("agent.v2_int8.controls", np.asarray(controls, np.float32),
+                 golden["controls"], **PROD_TOL)
+    assert_close("agent.v2_int8.plan", aux["plan_locs"][0], golden["plan"],
+                 **PROD_TOL)
+    assert_close("agent.v2_int8.ekf", state.ekf.x[0], golden["ekf"],
+                 **PROD_TOL)
 
 
 def test_ekf_matches_jax(rng):

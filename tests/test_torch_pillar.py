@@ -2,13 +2,14 @@
 
 The plain version of kernel `pillar_scatter_max` against the Pallas
 kernel `pillar_scatter_max_pallas(..., interpret=True)`: exact, since max
-does not depend on order.  The port's featurizer (`use_pallas=True`
-semantics) against JAX `point_pillar_apply(use_pallas=False)`, the form
-that runs on the CPU; both give the zero canvas with per-pillar maxima,
-JAX's emitted 128 lanes wide (lanes past C are zero).  f32, atol 1e-5
-and rtol 1e-6 (the cluster means sum in another order; v2-range
-coordinates give features near 50, where one f32 ulp is 4e-6).  The CUDA
-kernel itself runs only on the card (chip_smoke.py).
+does not depend on order.  The port's featurizer, on both of its routes
+(the production default and `use_pallas=True`), against JAX
+`point_pillar_apply(use_pallas=False)`, the form that runs on the CPU;
+all give the zero canvas with per-pillar maxima, JAX's emitted 128 lanes
+wide (lanes past C are zero).  f32, atol 1e-5 and rtol 1e-6 (the cluster
+means sum in another order; v2-range coordinates give features near 50,
+where one f32 ulp is 4e-6); bf16 below.  The CUDA kernels themselves run
+only on the card (chip_smoke.py).
 """
 
 import numpy as np
@@ -115,8 +116,7 @@ def test_pillar_ids_and_decoration_match():
                  np.asarray(ref)[k], atol=1e-5)
 
 
-@pytest.mark.parametrize("cfg_name,B,n", [("tiny", 2, 128), ("v2", 1, 512)])
-def test_point_pillar_matches_jax(cfg_name, B, n):
+def _f32_case(cfg_name, B, n):
     cfg = tiny_config() if cfg_name == "tiny" else v2_config()
     params = JP.point_pillar_init(jax.random.key(3), cfg.num_input,
                                   cfg.num_features)
@@ -136,12 +136,69 @@ def test_point_pillar_matches_jax(cfg_name, B, n):
         num_features=cfg.num_features, train=False, use_pallas=False)
     model = P.PointPillar(cfg.num_input, cfg.num_features, **_geo(cfg))
     load_jax_params(model, jax.tree.map(np.asarray, params))
+    return cfg, model, pts, valid, np.asarray(ref)
+
+
+@pytest.mark.parametrize("cfg_name,B,n", [("tiny", 2, 128), ("v2", 1, 512)])
+def test_point_pillar_matches_jax(cfg_name, B, n):
+    cfg, model, pts, valid, ref = _f32_case(cfg_name, B, n)
     with torch.no_grad():
         out = model(torch.from_numpy(pts), torch.from_numpy(valid))
+    _check_f32(cfg, B, out, ref)
+
+
+@pytest.mark.parametrize("cfg_name,B,n", [("tiny", 2, 128), ("v2", 1, 512)])
+def test_point_pillar_use_pallas_route_matches_jax(cfg_name, B, n):
+    cfg, model, pts, valid, ref = _f32_case(cfg_name, B, n)
+    with torch.no_grad():
+        out = model(torch.from_numpy(pts), torch.from_numpy(valid),
+                    use_pallas=True)
+    _check_f32(cfg, B, out, ref)
+
+
+def _check_f32(cfg, B, out, ref):
     C = cfg.num_features[-1]
-    ref = np.asarray(ref)
     assert out.shape == (B, cfg.ny, cfg.nx, C)
     assert (ref[..., C:] == 0).all()
     assert_close("pillar.point_pillar_apply", out, ref[..., :C], atol=1e-5,
                  rtol=1e-6)
     assert (out.numpy() == 0).all(axis=-1).mean() > 0.5  # empty pillars
+
+
+@pytest.mark.parametrize("cfg_name,B,n", [("tiny", 2, 128), ("v2", 1, 512)])
+def test_point_pillar_production_bf16_matches_jax(cfg_name, B, n):
+    """lav_tpu's production route (use_pallas=False, train=False) in bf16:
+    pillar ids from bf16 coordinates (points at the canvas edge included),
+    f32 decoration sums, a zero-init canvas max (kernels `scatter_add`,
+    `scatter_max`).  Equal here; the f32 sums run in another order than
+    lav_tpu's sorted blocks, so on other data a mean could round one bf16
+    ulp apart."""
+    cfg = tiny_config() if cfg_name == "tiny" else v2_config()
+    params = JP.point_pillar_init(jax.random.key(5), cfg.num_input,
+                                  cfg.num_features)
+    r = np.random.default_rng(8)
+    for i, c in enumerate(cfg.num_features):
+        params[f"bn_{i}"] = {
+            "scale": jnp.asarray(r.uniform(0.5, 2, c), jnp.float32),
+            "bias": jnp.asarray(r.normal(size=c), jnp.float32),
+            "mean": jnp.asarray(r.normal(size=c), jnp.float32),
+            "var": jnp.asarray(r.uniform(0.5, 2, c), jnp.float32)}
+    D = cfg.num_input - 5
+    pts, valid = _points(9, B, n, D, cfg.min_x - 5, cfg.max_x + 5)
+    pts = np.array(jnp.asarray(pts, jnp.bfloat16).astype(jnp.float32))
+    ref, _ = JP.point_pillar_apply(
+        params, jnp.asarray(pts, jnp.bfloat16), jnp.asarray(valid),
+        **_geo(cfg), num_features=cfg.num_features, train=False,
+        use_pallas=False)
+    model = P.PointPillar(cfg.num_input, cfg.num_features, **_geo(cfg))
+    load_jax_params(model, jax.tree.map(np.asarray, params))
+    with torch.no_grad():
+        out = model(torch.from_numpy(pts).bfloat16(),
+                    torch.from_numpy(valid))
+    C = cfg.num_features[-1]
+    ref = np.asarray(ref.astype(jnp.float32))
+    assert out.dtype == torch.bfloat16 and out.shape == (B, cfg.ny, cfg.nx, C)
+    assert (ref[..., C:] == 0).all()
+    np.testing.assert_array_equal(out.float().numpy() == 0, ref[..., :C] == 0)
+    assert_close("pillar.point_pillar_apply.bf16", out, ref[..., :C],
+                 atol=0.0)

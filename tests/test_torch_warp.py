@@ -14,7 +14,12 @@ builds its own grid, and jnp.linspace and torch.linspace differ by one f32
 ulp (1.2e-7 of the [-1, 1] range, ~2e-6 px), which moves a bilinear value
 by up to ~3e-5 on these unit-variance maps; those checks use atol 5e-5
 (lav_tpu's own Pallas and XLA routes differ by 1.1e-5 on the same inputs).
-The CUDA kernel itself runs only on the card (chip_smoke.py).
+The q8 form (int8 crops, kernel `crop_shared_q8`) against the Pallas q8
+kernel in interpret mode on lav_tpu's grid, bf16 source: both quantize the
+f32 bilinear sum, which the two sum in another order, so a value on a
+rounding boundary may land one step apart: at most 1 step, on at most 1%
+of the values.  The CUDA kernels themselves run only on the card
+(chip_smoke.py).
 """
 
 import numpy as np
@@ -26,7 +31,9 @@ from lav_tpu.core.warp import (
     _crop_theta, affine_grid as j_affine_grid, crop_feature_shared as j_crop,
     grid_sample_shared as j_grid_sample_shared,
 )
-from lav_tpu.core.warp_pallas import grid_sample_shared_pallas
+from lav_tpu.core.warp_pallas import (
+    grid_sample_shared_pallas, grid_sample_shared_pallas_q8,
+)
 from lav_tpu_torch.core import warp
 from tests.torch_parity import assert_close
 
@@ -157,3 +164,28 @@ def test_wrapper_routes_by_device():
                        warp.grid_sample_shared(src, grid))
     with pytest.raises(ValueError):
         warp.crop_shared(src.to("meta"), grid.to("meta"))
+
+
+@pytest.mark.parametrize("case", [CASES[1], CASES[4]])
+def test_q8_crop_matches_pallas_q8_kernel(case):
+    seed, K, H, C, crop, ppm, scale, off_y, edge, far = case
+    feats, locs, oris = _crop_inputs(seed, K, H, C, scale, edge, far, ppm)
+    src = jnp.asarray(feats, jnp.bfloat16)
+    x_scale = np.float32(float(jnp.abs(src.astype(jnp.float32)).max())
+                         / 127.0)
+    theta = _crop_theta(jnp.asarray(locs), jnp.asarray(oris), H, H, ppm,
+                        crop, 0.0, off_y)
+    grid = j_affine_grid(theta, crop, crop)
+    ref = np.asarray(grid_sample_shared_pallas_q8(
+        src, grid, jnp.float32(x_scale), interpret=True))
+    out = warp.crop_shared(torch.from_numpy(feats).bfloat16()[None],
+                           torch.from_numpy(np.array(grid))[None],
+                           q8_x_scale=torch.tensor(x_scale))
+    assert out.dtype == torch.int8 and ref.dtype == np.int8
+    diff = np.abs(out[0].numpy().astype(np.int32) - ref.astype(np.int32))
+    assert diff.max() <= 1 and (diff > 0).mean() <= 0.01, (
+        diff.max(), (diff > 0).mean())
+    assert_close("warp.crop_shared_q8", out[0], ref, atol=1.0)
+    assert np.abs(ref).max() > 64          # the int8 range is used
+    if far:
+        assert int(out[0, -1].abs().max()) == 0
