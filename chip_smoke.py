@@ -4,6 +4,7 @@
     python3 chip_smoke.py                     # every phase, one card
     python3 chip_smoke.py --phases build,crop # a subset, for bring-up
     python3 chip_smoke.py --phases build,crop,scatter,conv_int8,production
+    python3 chip_smoke.py --phases build,pillar,crop,conv_int8,gather,variants
 
 Phases, each printing its own line and raising on failure:
   build   the card's name and power limit; nvcc builds every kernel
@@ -11,19 +12,26 @@ Phases, each printing its own line and raising on failure:
           shapes (4 egos, 160x160x384 source, 16 crops of 96x96), f32 and
           bf16, with crops straddling the border and wholly outside; and
           kernel crop_shared_q8 (int8 epilogue) on an f32 source there and
-          on a bf16 source at the production shapes (16 egos)
+          on a bf16 source at the production shapes (16 egos); and kernel
+          crop_shared_q8_s2d (space-to-depth int8 crops) at the production
+          shapes, equal to crop_shared_q8's crops reshuffled
   pillar  kernel pillar_scatter_max against its plain version at the
           agent's shapes (4 x 49152 points, 64 channels, 4 x 102401
           pillars) with masked points, duplicate ids, empty pillars and
-          negative values; must be exact
+          negative values, and its bf16 form at the production shapes
+          (16 x 60000 points, 16 x 102401 pillars); must be exact
   scatter kernels scatter_max (bf16 and f32, exact) and scatter_add (f32)
           against their plain versions at the production shapes (16 x
           60000 points into 16 x 102400 + 1 rows) with duplicate ids,
           empty pillars and dump-row points
   conv_int8  kernel conv2d_int8 against its plain version at every int8
-          conv shape of the production tick (16 egos), f32 output with a
-          bias and bf16 output without; must be exact; cuDNN's bf16 conv
-          at the same shape is timed beside it
+          conv shape of the production tick (16 egos), and at the variant
+          routes' shapes (the s2d conv1 and the three int8 upconvs as
+          input-dilated convs), f32 output with a bias and bf16 output
+          without; must be exact; cuDNN's bf16 conv (F.conv_transpose2d for
+          the upconvs) at the same shape is timed beside it
+  gather  kernel take_along_rows (the gather probe, scripts/exp_gather.py)
+          at the probe's six (S, L, dtype) cases; must be exact
   agent   the full-width v2 agent (3 cameras 288x256, telephoto 192x480,
           8192 points per sweep) in f32 on the use_pallas route for 4
           egos and 3 ticks on the card: its kernels launched, controls
@@ -35,8 +43,15 @@ Phases, each printing its own line and raising on failure:
           scatter_add and conv2d_int8 launched every tick, controls finite
           and in range, ticks 1-2 of ego 0 equal to the port's CPU run on
           the same weights and scales; the p50 tick
+  variants  bench.py's three variant routes at once (BENCH_PALLAS=1,
+          LAV_S2D_CROPS=1, LAV_INT8_UPCONV=1): the production setup with
+          use_pallas=True, s2d_crops=True, int8_upconv=True; the bf16
+          pillar_scatter_max, crop_shared_q8_s2d, scatter_add and 42
+          conv2d_int8 launches every tick, crop_shared_q8 and scatter_max
+          none; controls, CPU parity and the p50 tick as in production
   profile (only when asked for) one warm tick of the agent under
-          torch.profiler (--config f32, production or both): device time
+          torch.profiler (--config f32, production, variants, both = the
+          first two, or all): device time
           per agent stage, the device's busy share of the tick, and the
           kernels that take the most time
 
@@ -57,10 +72,9 @@ import sys
 import time
 
 AGENT_KERNELS = ("crop_shared", "pillar_scatter_max", "scatter_add")
-PROD_KERNELS = ("crop_shared_q8", "scatter_max", "scatter_add",
-                "conv2d_int8")
-ALL_PHASES = ("build", "crop", "pillar", "scatter", "conv_int8", "agent",
-              "production")
+VARIANT_ABSENT = ("crop_shared_q8", "scatter_max", "pillar_scatter_max")
+ALL_PHASES = ("build", "crop", "pillar", "scatter", "conv_int8", "gather",
+              "agent", "production", "variants")
 EXTRA_PHASES = ("profile",)
 NUM_EGO = 4
 MAX_POINTS = 8192
@@ -216,16 +230,18 @@ def phase_crop(ctx):
     if not err <= CROP_F32_ATOL:
         raise AssertionError("crop_shared (scalar path) disagrees with plain")
     del src, grid
-    res["q8"] = _crop_q8(torch, ctx, dev)
+    q8 = _crop_q8(torch, ctx, dev)
+    res["q8"], res["q8_s2d"] = q8["q8"], q8["s2d"]
     ctx["crop"] = res
 
 
 def _crop_q8(torch, ctx, dev):
     """crop_shared_q8: an f32 source at the f32 agent's shapes (the f32 +
     int8 configuration), then a bf16 source at the production shapes,
-    timed; x_scale = absmax / 127 so that the int8 range is used."""
+    where crop_shared_q8_s2d is checked too; both timed there.  x_scale =
+    absmax / 127 so that the int8 range is used."""
     from lav_tpu_torch.core.warp import (
-        crop_shared, grid_sample_shared_q8, inverse_scale,
+        crop_shared, grid_sample_shared_q8, inverse_scale, space_to_depth,
     )
 
     for dtype, E in ((torch.float32, NUM_EGO),
@@ -247,22 +263,49 @@ def _crop_q8(torch, ctx, dev):
                 frac > CROP_Q8_FRACTION or far != 0:
             raise AssertionError(f"crop_shared_q8 {name} disagrees with "
                                  "plain")
-    ms = cuda_ms(torch, lambda: crop_shared(src, grid, q8_x_scale=x_scale))
+    # the space-to-depth form (LAV_S2D_CROPS=1) on the same production
+    # inputs: the same sums and rounding, only the store moves, so it must
+    # equal the q8 kernel's crops reshuffled exactly
+    s2d = crop_shared(src, grid, q8_x_scale=x_scale, s2d=True)
+    torch.cuda.synchronize()
+    same = torch.equal(s2d, space_to_depth(out))
+    diff = (s2d.int() - space_to_depth(ref).int()).abs()
+    err_s2d = int(diff.max())
+    frac_s2d = float((diff > 0).float().mean())
+    log("crop", f"q8 s2d ({NUM_EGO_PROD} egos): {tuple(s2d.shape)}, equal "
+        f"to crop_shared_q8 reshuffled {same}; against plain max step "
+        f"diff {err_s2d} (tol {CROP_Q8_STEPS}), values off {frac_s2d:.2e} "
+        f"(tol {CROP_Q8_FRACTION})")
+    if not same or err_s2d > CROP_Q8_STEPS or frac_s2d > CROP_Q8_FRACTION:
+        raise AssertionError("crop_shared_q8_s2d disagrees")
+    del diff, ref
     inv = inverse_scale(x_scale)
-    plain_ms = cuda_ms(torch, lambda: grid_sample_shared_q8(src, grid, inv),
-                       iters=2, warmup=1)
     B, H, W, C = src.shape
     _, K, Ho, Wo, _ = grid.shape
     nbytes = src.numel() * 2 + grid.numel() * 4 + B * K * Ho * Wo * C
     flops = B * K * Ho * Wo * (10 * C + 24)
     bms, by = bound_ms(nbytes, flops)
-    log("crop", f"q8: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, no "
-        f"library call, bound {bms:.4f} ms ({by}, {nbytes / 1e6:.1f} MB) on "
-        f"{ctx.get('smi', '?')}")
-    del src, grid, out, ref
+    res = {}
+    # in turns, q8 then s2d then s2d then q8, so that both see one card
+    t = {"q8": [], "s2d": []}
+    for form in ("q8", "s2d", "s2d", "q8"):
+        t[form].append(cuda_ms(torch, lambda: crop_shared(
+            src, grid, q8_x_scale=x_scale, s2d=form == "s2d")))
+    plain = {"q8": lambda: grid_sample_shared_q8(src, grid, inv),
+             "s2d": lambda: space_to_depth(grid_sample_shared_q8(src, grid,
+                                                                 inv))}
+    for form, e in (("q8", err), ("s2d", err_s2d)):
+        ms = statistics.mean(t[form])
+        plain_ms = cuda_ms(torch, plain[form], iters=1, warmup=1)
+        log("crop", f"{form}: kernel {ms:.4f} ms ({t[form][0]:.4f}, "
+            f"{t[form][1]:.4f}), plain {plain_ms:.4f} ms, no library call, "
+            f"bound {bms:.4f} ms ({by}, {nbytes / 1e6:.1f} MB) on "
+            f"{ctx.get('smi', '?')}")
+        res[form] = dict(max_abs_err=float(e), ms=ms, plain_ms=plain_ms,
+                         library_ms=None, bound_ms=bms, bound_by=by)
+    del src, grid, out, s2d
     torch.cuda.empty_cache()
-    return dict(max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
-                library_ms=None, bound_ms=bms, bound_by=by)
+    return res
 
 
 def phase_pillar(ctx):
@@ -309,6 +352,56 @@ def phase_pillar(ctx):
     log("pillar", f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"scatter_reduce_ {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}, "
         f"{nbytes / 1e6:.1f} MB) on {ctx.get('smi', '?')}")
+    del feat, pid, out, ref, canvas, idx
+    ctx["pillar_bf16"] = _pillar_bf16(torch, ctx, dev)
+
+
+def _pillar_bf16(torch, ctx, dev):
+    """The bf16 form (BENCH_PALLAS=1 under bf16) at the production shapes:
+    16 x 60000 points, 64 channels, 16 x (102400 + 1) pillars, masked
+    points at NEG, duplicates, empty pillars and negative values."""
+    from lav_tpu_torch.ops.pillar import (
+        NEG, pillar_scatter_max, pillar_scatter_max_plain,
+    )
+
+    g = torch.Generator(device="cpu").manual_seed(6)
+    E, P, C = NUM_EGO_PROD, 2 * MAX_POINTS_PROD * 3, 64
+    G = 320 * 320
+    S = G + 1
+    feat = torch.randn((E, P, C), generator=g)
+    local = torch.randint(0, G // 8, (E, P), generator=g)
+    invalid = torch.rand((E, P), generator=g) < 0.2
+    local[invalid] = G
+    feat[invalid] = NEG
+    pid = (local + torch.arange(E)[:, None] * S).reshape(-1)
+    feat = feat.reshape(-1, C).to(dev, torch.bfloat16)
+    pid = pid.to(torch.int32).to(dev)
+    out = pillar_scatter_max(feat, pid, E * S)
+    ref = pillar_scatter_max_plain(feat, pid, E * S)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    empty = (ref == 0).all(dim=1).float().mean().item()
+    dump_zero = bool((ref.reshape(E, S, C)[:, G] == 0).all())
+    log("pillar", f"bf16 ({E} egos): max_abs_err {err} (must be 0), empty "
+        f"pillars {empty:.3f}, dump slots 0 {dump_zero}")
+    if err != 0.0 or not torch.equal(out, ref) or not dump_zero:
+        raise AssertionError("pillar_scatter_max bf16 disagrees with plain")
+    ms = cuda_ms(torch, lambda: pillar_scatter_max(feat, pid, E * S))
+    plain_ms = cuda_ms(torch, lambda: pillar_scatter_max_plain(
+        feat, pid, E * S))
+    canvas = torch.full((E * S, C), NEG, dtype=torch.bfloat16, device=dev)
+    idx = pid.long()[:, None].expand(-1, C)
+    lib_ms = cuda_ms(torch, lambda: canvas.scatter_reduce_(
+        0, idx, feat, "amax", include_self=True))
+    nbytes = feat.numel() * 2 + pid.numel() * 4 + E * S * C * 2
+    bms, by = bound_ms(nbytes, feat.numel())
+    log("pillar", f"bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"scatter_reduce_ {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}, "
+        f"{nbytes / 1e6:.1f} MB) on {ctx.get('smi', '?')}")
+    del feat, pid, out, ref, canvas, idx
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=bms, bound_by=by)
 
 
 def phase_scatter(ctx):
@@ -425,13 +518,76 @@ def _conv_int8_shapes():
 
 
 INT8_CONVS_PER_TICK = 39   # the committed calibration JSON's keys
+INT8_UPCONVS = 3           # LAV_INT8_UPCONV=1: backbone upconv1-3
+
+
+def _variant_conv_shapes():
+    """The int8 convs the variant routes add or change at NUM_EGO_PROD egos:
+    (name, batch, H, W, C, O, k, pads ((top, bottom), (left, right)), input
+    dilation, convs per tick, transposed conv (stride, padding,
+    output_padding) or None).  The s2d conv1 replaces planner.conv1; the
+    upconvs (nf = 64) run as convs over the input dilated by their stride
+    with padding (k-1-p, k-1-p+op)."""
+    E = NUM_EGO_PROD
+    return [
+        ("planner.conv1_s2d", E * 16, 48, 48, 4 * 384, 64, 4,
+         ((2, 1), (2, 1)), 1, 1, None),
+        ("lidar.upconv1", E, 160, 160, 64, 128, 1, ((0, 0), (0, 0)), 1, 1,
+         (1, 0, 0)),
+        ("lidar.upconv2", E, 80, 80, 128, 128, 4, ((2, 2), (2, 2)), 2, 1,
+         (2, 1, 0)),
+        ("lidar.upconv3", E, 40, 40, 128, 128, 4, ((2, 4), (2, 4)), 4, 1,
+         (4, 1, 2)),
+    ]
+
+
+def _taps_hit(n, k, pads, lhs):
+    """(output position, tap) pairs along one axis whose tap reads a real
+    input pixel of the dilated, padded input (the rest read zeros)."""
+    out = (n - 1) * lhs + 1 + pads[0] + pads[1] - k + 1
+    return sum(1 for o in range(out) for t in range(k)
+               if (o - pads[0] + t) % lhs == 0
+               and 0 <= (o - pads[0] + t) // lhs < n)
+
+
+def _conv_case(torch, dev, g, N, H, W, C, O, k, stride, pads, lhs, w=None):
+    """Random int8 inputs of one conv, checked exactly against the plain
+    version (f32 output with a bias, then bf16 without); returns (args of
+    the bf16 call, output, max abs error)."""
+    from lav_tpu_torch.nn.quant import conv2d_int8_nhwc, conv2d_int8_plain
+
+    xq = torch.randint(-127, 128, (N, H, W, C), generator=g,
+                       dtype=torch.int8, device=dev)
+    if w is None:
+        w = torch.randint(-127, 128, (O, k, k, C), generator=g,
+                          dtype=torch.int8, device=dev)
+    w_scale = torch.rand((O,), generator=g, device=dev) * 1e-3 + 1e-4
+    s_x = torch.tensor(0.02, device=dev)
+    bias = torch.randn((O,), generator=g, device=dev)
+    worst = 0.0
+    for out_dtype, b in ((torch.float32, bias), (torch.bfloat16, None)):
+        args = (xq, w, w_scale, s_x, b, (stride, stride), pads, (1, 1),
+                out_dtype, (lhs, lhs))
+        out = conv2d_int8_nhwc(*args)
+        ref = conv2d_int8_plain(*args)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        worst = max(worst, err)
+        if not torch.equal(out, ref):
+            raise AssertionError(f"conv2d_int8 {(N, H, W, C, O, k)} "
+                                 f"{out_dtype} disagrees with plain: "
+                                 f"max_abs_err {err}")
+        del ref
+    return args, out, worst
 
 
 def phase_conv_int8(ctx):
     import torch
     import torch.nn.functional as F
 
-    from lav_tpu_torch.nn.quant import conv2d_int8_nhwc, conv2d_int8_plain
+    from lav_tpu_torch.nn.quant import (
+        conv2d_int8_nhwc, conv2d_int8_plain, s2d_weight,
+    )
 
     dev = torch.device(ctx["device"])
     g = torch.Generator(device=dev).manual_seed(5)
@@ -439,29 +595,13 @@ def phase_conv_int8(ctx):
     assert sum(r[-1] for r in shapes) == INT8_CONVS_PER_TICK
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                ops=0.0, nbytes=0.0)
+    per_shape = {}
     worst = 0.0
     for name, N, H, W, C, O, k, st, pad, count in shapes:
-        xq = torch.randint(-127, 128, (N, H, W, C), generator=g,
-                           dtype=torch.int8, device=dev)
-        w = torch.randint(-127, 128, (O, k, k, C), generator=g,
-                          dtype=torch.int8, device=dev)
-        w_scale = torch.rand((O,), generator=g, device=dev) * 1e-3 + 1e-4
-        s_x = torch.tensor(0.02, device=dev)
-        bias = torch.randn((O,), generator=g, device=dev)
-        # f32 output with a bias (the calibration run's dtype), then bf16
-        # without (the tick's convs), which is timed
-        for out_dtype, b in ((torch.float32, bias), (torch.bfloat16, None)):
-            args = (xq, w, w_scale, s_x, b, (st, st), (pad, pad), (1, 1),
-                    out_dtype)
-            out = conv2d_int8_nhwc(*args)
-            ref = conv2d_int8_plain(*args)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            worst = max(worst, err)
-            if not torch.equal(out, ref):
-                raise AssertionError(f"conv2d_int8 {name} {out_dtype} "
-                                     f"disagrees with plain: max_abs_err "
-                                     f"{err}")
+        args, out, err = _conv_case(torch, dev, g, N, H, W, C, O, k, st,
+                                    ((pad, pad), (pad, pad)), 1)
+        worst = max(worst, err)
+        xq, w = args[0], args[1]
         ms = cuda_ms(torch, lambda: conv2d_int8_nhwc(*args), iters=5)
         plain_ms = cuda_ms(torch, lambda: conv2d_int8_plain(*args), iters=1,
                            warmup=1)
@@ -477,11 +617,14 @@ def phase_conv_int8(ctx):
             f"s{st}: exact, kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TOPS), "
             f"plain {plain_ms:.3f} ms, cuDNN bf16 conv (another function) "
             f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+        per_shape[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                               bound_ms=bms, ops=ops, nbytes=nbytes,
+                               count=count)
         for key, val in (("ms", ms), ("plain_ms", plain_ms),
                          ("library_ms", lib_ms), ("bound_ms", bms),
                          ("ops", ops), ("nbytes", nbytes)):
             tot[key] += count * val
-        del xq, w, out, ref, xb, wb
+        del xq, w, out, xb, wb, args
         torch.cuda.empty_cache()
     by = ("operations" if tot["ops"] / INT8_OPS
           >= tot["nbytes"] / HBM_BYTES_PER_S else "bytes")
@@ -495,6 +638,129 @@ def phase_conv_int8(ctx):
         f"kernel {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, cuDNN "
         f"bf16 {tot['library_ms']:.3f} ms, bound {tot['bound_ms']:.4f} ms "
         f"({by}) on {ctx.get('smi', '?')}")
+
+    # the variant routes' shapes: the s2d conv1 (its weight derived from a
+    # 7x7 one, zeros included) and the upconvs as input-dilated convs
+    var = {k: tot[k] - per_shape["planner.conv1"][k]
+           for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    for (name, N, H, W, C, O, k, pads, lhs, count,
+         tconv) in _variant_conv_shapes():
+        w = None
+        if tconv is None:
+            w7 = torch.randint(-127, 128, (O, 7, 7, C // 4), generator=g,
+                               dtype=torch.int8, device=dev)
+            w = s2d_weight(w7)
+            del w7
+        args, out, err = _conv_case(torch, dev, g, N, H, W, C, O, k, 1,
+                                    pads, lhs, w)
+        worst = max(worst, err)
+        xq, w = args[0], args[1]
+        ms = cuda_ms(torch, lambda: conv2d_int8_nhwc(*args), iters=5)
+        plain_ms = cuda_ms(torch, lambda: conv2d_int8_plain(*args), iters=1,
+                           warmup=1)
+        xb = xq.permute(0, 3, 1, 2).to(torch.bfloat16)
+        if tconv is None:
+            # cuDNN's bf16 conv on the input padded once beforehand
+            xb = F.pad(xb, (pads[1][0], pads[1][1], pads[0][0], pads[0][1]))
+            wb = w.permute(0, 3, 1, 2).to(torch.bfloat16)
+            lib_ms = cuda_ms(torch, lambda: F.conv2d(xb, wb), iters=5)
+            useful = 2.0 * N * out.shape[1] * out.shape[2] * O * 49 * (C // 4)
+            what = "cuDNN bf16 conv"
+        else:
+            s, p, op = tconv
+            # the transposed conv's own weight: the flipped kernel, (I, O,
+            # kh, kw)
+            wb = w.flip(1, 2).permute(3, 0, 1, 2).to(torch.bfloat16)
+            lib_ms = cuda_ms(torch, lambda: F.conv_transpose2d(
+                xb, wb, None, s, p, op), iters=5)
+            useful = (2.0 * N * O * C * _taps_hit(H, k, pads[0], lhs)
+                      * _taps_hit(W, k, pads[1], lhs))
+            what = "F.conv_transpose2d bf16"
+        walked = 2.0 * N * out.shape[1] * out.shape[2] * O * k * k * C
+        nbytes = xq.numel() + w.numel() + O * 4 + out.numel() * 2
+        bms, by = bound_ms(nbytes, useful, INT8_OPS)
+        log("conv_int8", f"{name} x{count}: {N}x{H}x{W}x{C} -> {O} k{k} "
+            f"pads {pads} input dilation {lhs}: exact, kernel {ms:.4f} ms "
+            f"({useful / ms / 1e9:.1f} TOPS useful, {walked / ms / 1e9:.1f} "
+            f"walked; walked/useful {walked / useful:.2f}), plain "
+            f"{plain_ms:.3f} ms, {what} (another function) {lib_ms:.4f} ms, "
+            f"bound {bms:.4f} ms ({by})")
+        per_shape[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                               bound_ms=bms, ops=useful, walked_ops=walked,
+                               nbytes=nbytes, count=count)
+        for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                         ("library_ms", lib_ms), ("bound_ms", bms)):
+            var[key] += count * val
+        del xq, w, out, xb, wb, args
+        torch.cuda.empty_cache()
+    ctx["conv_int8"].update(max_abs_err=worst, variants_ms=var["ms"],
+                            variants_plain_ms=var["plain_ms"],
+                            variants_bound_ms=var["bound_ms"],
+                            variants_cudnn_bf16_ms=var["library_ms"])
+    ctx["conv_shapes"] = per_shape
+    log("conv_int8", f"one variants tick ({INT8_CONVS_PER_TICK + INT8_UPCONVS}"
+        f" convs, s2d conv1): kernel {var['ms']:.3f} ms, plain "
+        f"{var['plain_ms']:.3f} ms, cuDNN bf16 {var['library_ms']:.3f} ms, "
+        f"bound {var['bound_ms']:.4f} ms on {ctx.get('smi', '?')}")
+
+
+GATHER_CASES = ((8, 128, "float32"), (512, 128, "float32"),
+                (9216, 128, "float32"), (9216, 128, "bfloat16"),
+                (9216, 256, "float32"), (25600, 128, "float32"))
+# scripts/exp_gather.py:55-60
+
+
+def phase_gather(ctx):
+    """The gather probe: take_along_rows at the probe's six cases, driven
+    once with the counts at 0, then each checked and timed."""
+    import torch
+
+    from lav_tpu_torch.ops.gather import take_along_rows, take_along_rows_plain
+    from lav_tpu_torch.utils import native
+
+    dev = torch.device(ctx["device"])
+    g = torch.Generator(device=dev).manual_seed(7)
+    cases = []
+    for S, L, dt in GATHER_CASES:
+        x = torch.randn((S, L), generator=g, device=dev).to(getattr(torch, dt))
+        idx = torch.randint(0, S, (S, L), generator=g, device=dev,
+                            dtype=torch.int32)
+        cases.append((S, L, dt, x, idx))
+    native.reset_launches()
+    outs = [take_along_rows(x, idx) for _, _, _, x, idx in cases]
+    torch.cuda.synchronize()
+    launches = native.LAUNCHES["take_along_rows"]
+    ctx["launches_gather"] = {"take_along_rows": launches}
+    if launches != len(cases):
+        raise AssertionError(f"take_along_rows launched {launches} times for "
+                             f"{len(cases)} cases")
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    for (S, L, dt, x, idx), out in zip(cases, outs):
+        ref = take_along_rows_plain(x, idx)
+        if not torch.equal(out, ref):
+            raise AssertionError(f"take_along_rows ({S}, {L}) {dt} disagrees "
+                                 "with plain")
+        ms = cuda_ms(torch, lambda: take_along_rows(x, idx), iters=20)
+        plain_ms = cuda_ms(torch, lambda: take_along_rows_plain(x, idx),
+                           iters=20)
+        idx64 = idx.long()
+        lib_ms = cuda_ms(torch, lambda: torch.gather(x, 0, idx64), iters=20)
+        # idx read and out written once; of x only the distinct (row,
+        # column) pairs this idx names
+        hit = torch.unique(idx64 * L + torch.arange(L, device=dev)).numel()
+        nbytes = idx.numel() * 4 + (out.numel() + hit) * x.element_size()
+        bms, by = bound_ms(nbytes)
+        log("gather", f"({S}, {L}) {dt}: exact, kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, torch.gather {lib_ms:.4f} ms, bound "
+            f"{bms:.5f} ms ({by}, {nbytes / 1e6:.2f} MB) on "
+            f"{ctx.get('smi', '?')}")
+        for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                         ("library_ms", lib_ms), ("bound_ms", bms)):
+            tot[key] += val
+    ctx["gather"] = dict(max_abs_err=0.0, bound_by="bytes", **tot)
+    log("gather", f"six cases together: kernel {tot['ms']:.4f} ms, plain "
+        f"{tot['plain_ms']:.4f} ms, torch.gather {tot['library_ms']:.4f} ms, "
+        f"bound {tot['bound_ms']:.5f} ms")
 
 
 def _check_controls(torch, outs):
@@ -576,6 +842,29 @@ def phase_agent(ctx):
 
 
 def phase_production(ctx):
+    _bench_tick(ctx, "production", {}, INT8_CONVS_PER_TICK,
+                {"crop_shared_q8": 1, "scatter_max": 1, "scatter_add": 1},
+                absent=())
+
+
+def phase_variants(ctx):
+    _bench_tick(ctx, "variants",
+                dict(use_pallas=True, s2d_crops=True, int8_upconv=True),
+                INT8_CONVS_PER_TICK + INT8_UPCONVS,
+                {"pillar_scatter_max_bf16": 1, "crop_shared_q8_s2d": 1,
+                 "scatter_add": 1}, absent=VARIANT_ABSENT)
+    log("variants", f"p50 tick {ctx['variants_p50_ms']:.3f} ms against "
+        f"production's {ctx.get('production_p50_ms', 'not run')} ms in this "
+        "call")
+
+
+def _bench_tick(ctx, phase, knobs, n_convs, at_least, absent):
+    """bench.py's configuration (16 egos, 10000 points per sweep, bf16,
+    int8 "mxu" calibrated on the card) with the variant `knobs`: 3 ticks
+    with launch counts per tick (`at_least` launches of each named kernel,
+    exactly `n_convs` of conv2d_int8, none of `absent`), then 5 more; the
+    p50 of ticks 2-8; ticks 1-2 of ego 0 against the port's CPU run on the
+    same weights and scales."""
     import copy
 
     import numpy as np
@@ -590,17 +879,19 @@ def phase_production(ctx):
     step, models, state, obs, cfg = v2_agent_setup(
         max_points=MAX_POINTS_PROD, num_ego=NUM_EGO_PROD,
         device=ctx["device"], seed=0, quant="mxu",
-        compute_dtype=torch.bfloat16)
+        compute_dtype=torch.bfloat16, **knobs)
     torch.cuda.synchronize()
     convs = list(int8_convs(models))
     calibrated = sum(c.x_scale is not None for _, c in convs)
-    log("production", f"setup (seeded weights, int8 mxu, calibrated on the "
+    log(phase, f"setup {knobs} (seeded weights, int8 mxu, calibrated on the "
         f"card) {time.perf_counter() - t0:.1f} s: {len(convs)} int8 convs, "
         f"{calibrated} with static scales")
-    if len(convs) != INT8_CONVS_PER_TICK or calibrated != len(convs):
-        raise AssertionError("the mxu configuration has the wrong int8 convs")
+    if len(convs) != n_convs or calibrated != len(convs):
+        raise AssertionError(f"{phase}: the configuration has the wrong int8 "
+                             "convs")
     cpu_models = copy.deepcopy(models).to("cpu")  # same weights and scales
 
+    names = tuple(at_least) + ("conv2d_int8",) + tuple(absent)
     native.reset_launches()
     tick_ms, outs, per_tick = [], [], []
     prev = dict(native.LAUNCHES)
@@ -613,27 +904,29 @@ def phase_production(ctx):
         if t < 3:
             outs.append((ctrl, aux))
             now = dict(native.LAUNCHES)
-            per_tick.append({k: now[k] - prev[k] for k in PROD_KERNELS})
+            per_tick.append({k: now[k] - prev[k] for k in names})
             prev = now
             if t == 2:
-                launches = {k: now[k] for k in PROD_KERNELS}
-    ctx["launches_prod"] = launches
-    log("production", f"{NUM_EGO_PROD} egos, launches per tick {per_tick}")
+                ctx[f"launches_{phase}"] = {k: now[k] for k in names}
+    log(phase, f"{NUM_EGO_PROD} egos, launches per tick {per_tick}")
     for t, counts in enumerate(per_tick):
-        if min(counts.values()) < 1 or \
-                counts["conv2d_int8"] != INT8_CONVS_PER_TICK:
-            raise AssertionError(f"tick {t + 1}: a kernel of the path did "
-                                 f"not launch as it should: {counts}")
+        if any(counts[k] < n for k, n in at_least.items()) or \
+                counts["conv2d_int8"] != n_convs or \
+                any(counts[k] for k in absent):
+            raise AssertionError(f"{phase} tick {t + 1}: a kernel did not "
+                                 f"launch as it should: {counts}")
     _check_controls(torch, outs)
     p50 = statistics.median(tick_ms[1:])
-    ctx["prod_p50_ms"] = p50
-    log("production", f"tick ms {[round(t, 3) for t in tick_ms]}; p50 of "
-        f"ticks 2-8 {p50:.3f} ms ({NUM_EGO_PROD} egos, "
-        f"{MAX_POINTS_PROD} points per sweep) on {ctx.get('smi', '?')}")
+    ctx[f"{phase}_p50_ms"] = p50
+    log(phase, f"tick ms {[round(t, 3) for t in tick_ms]}; p50 of ticks 2-8 "
+        f"{p50:.3f} ms ({NUM_EGO_PROD} egos, {MAX_POINTS_PROD} points per "
+        f"sweep) on {ctx.get('smi', '?')}")
 
     # ego 0 through the port on the CPU, same weights, scales and inputs
     cinit, cstep = build_agent(cfg, max_points=MAX_POINTS_PROD,
-                               compute_dtype=torch.bfloat16, device="cpu")
+                               compute_dtype=torch.bfloat16, device="cpu",
+                               use_pallas=knobs.get("use_pallas", False),
+                               s2d_crops=knobs.get("s2d_crops", False))
     cobs = make_obs(1, MAX_POINTS_PROD, seed=0, device="cpu")
     worst = 0.0
     for t, (ctrl_c, aux_c) in enumerate(_run_ticks(cstep, cpu_models,
@@ -645,27 +938,31 @@ def phase_production(ctx):
         v = dc["valid"]
         xy = max([(dg[f][v].float() - dc[f][v].float()).abs().max().item()
                   for f in ("x", "y")] + [0.0]) if same and v.any() else None
-        log("production", f"tick {t + 1} ego 0 detections: {int(v.sum())} "
-            f"on the CPU, {int(dg['valid'].sum())} on the card, valid masks "
-            f"agree {same}, max |xy| diff {xy}")
+        log(phase, f"tick {t + 1} ego 0 detections: {int(v.sum())} on the "
+            f"CPU, {int(dg['valid'].sum())} on the card, valid masks agree "
+            f"{same}, max |xy| diff {xy}")
         got, want = _ego0(ctrl_g, aux_g), _ego0(ctrl_c, aux_c)
         err = float(np.abs(got - want).max())
         worst = max(worst, err)
         np.testing.assert_allclose(got, want, atol=PROD_ATOL, rtol=PROD_RTOL,
                                    err_msg=f"tick {t + 1} ego 0 GPU vs CPU")
-    log("production", f"ticks 1-2 of ego 0 match the CPU port: max_abs_err "
+    log(phase, f"ticks 1-2 of ego 0 match the CPU port: max_abs_err "
         f"{worst:.3e} (atol {PROD_ATOL}, rtol {PROD_RTOL})")
 
 
 def phase_profile(ctx):
     import torch
 
+    prod = dict(max_points=MAX_POINTS_PROD, num_ego=NUM_EGO_PROD,
+                quant="mxu", compute_dtype=torch.bfloat16)
     setups = {
         "f32": dict(max_points=MAX_POINTS, num_ego=NUM_EGO, use_pallas=True),
-        "production": dict(max_points=MAX_POINTS_PROD, num_ego=NUM_EGO_PROD,
-                           quant="mxu", compute_dtype=torch.bfloat16),
+        "production": prod,
+        "variants": dict(prod, use_pallas=True, s2d_crops=True,
+                         int8_upconv=True),
     }
-    names = list(setups) if ctx["config"] == "both" else [ctx["config"]]
+    names = {"both": ["f32", "production"], "all": list(setups)}.get(
+        ctx["config"], [ctx["config"]])
     for name in names:
         _profile_one(ctx, name, setups[name])
 
@@ -727,36 +1024,38 @@ def _profile_one(ctx, config, setup):
 def kernels_line(ctx):
     """Every kernel with its numbers; `launches` counts the main path that
     runs it: the f32 agent for crop_shared and pillar_scatter_max, the
-    production tick for the rest."""
-    launches = {**ctx.get("launches_agent", {}),
-                **ctx.get("launches_prod", {})}
-    rows = []
+    production tick for crop_shared_q8, scatter_max, scatter_add and
+    conv2d_int8, the variants tick for crop_shared_q8_s2d and
+    pillar_scatter_max_bf16, the gather probe for take_along_rows."""
     crop, scatter = ctx.get("crop", {}), ctx.get("scatter", {})
     specs = (
-        ("crop_shared", crop.get("float32"),
-         "lav_tpu_torch/csrc/crop_shared.cu",
+        ("crop_shared", crop.get("float32"), "agent", "crop_shared.cu",
          "lav_tpu/core/warp_pallas.py:108"),
-        ("crop_shared_q8", crop.get("q8"),
-         "lav_tpu_torch/csrc/crop_shared.cu",
+        ("crop_shared_q8", crop.get("q8"), "production", "crop_shared.cu",
          "lav_tpu/core/warp_pallas.py:164"),
-        ("pillar_scatter_max", ctx.get("pillar"),
-         "lav_tpu_torch/csrc/pillar_scatter_max.cu",
-         "lav_tpu/ops/pillar_pallas.py:36"),
-        ("scatter_max", scatter.get("max"),
-         "lav_tpu_torch/csrc/pillar_scatter.cu",
+        ("crop_shared_q8_s2d", crop.get("q8_s2d"), "variants",
+         "crop_shared.cu", "lav_tpu/core/warp_pallas.py:171"),
+        ("pillar_scatter_max", ctx.get("pillar"), "agent",
+         "pillar_scatter_max.cu", "lav_tpu/ops/pillar_pallas.py:36"),
+        ("pillar_scatter_max_bf16", ctx.get("pillar_bf16"), "variants",
+         "pillar_scatter_max.cu", "lav_tpu/ops/pillar_pallas.py:36"),
+        ("scatter_max", scatter.get("max"), "production", "pillar_scatter.cu",
          "lav_tpu/ops/pillar_pallas2.py:84"),
-        ("scatter_add", scatter.get("add"),
-         "lav_tpu_torch/csrc/pillar_scatter.cu",
+        ("scatter_add", scatter.get("add"), "production", "pillar_scatter.cu",
          "lav_tpu/ops/pillar_pallas2.py:84"),
-        ("conv2d_int8", ctx.get("conv_int8"),
-         "lav_tpu_torch/csrc/conv2d_int8.cu",
+        ("conv2d_int8", ctx.get("conv_int8"), "production", "conv2d_int8.cu",
          "lav_tpu/nn/quant.py:246"),
+        ("take_along_rows", ctx.get("gather"), "gather",
+         "take_along_rows.cu", "scripts/exp_gather.py:28"),
     )
-    for name, r, source, replaces in specs:
+    rows = []
+    for name, r, path, source, replaces in specs:
         if r is None:
             continue
-        rows.append(dict(name=name, route="cuda", source=source,
-                         replaces=replaces, launches=launches.get(name, 0),
+        rows.append(dict(name=name, route="cuda",
+                         source=f"lav_tpu_torch/csrc/{source}",
+                         replaces=replaces,
+                         launches=ctx.get(f"launches_{path}", {}).get(name, 0),
                          **r))
     return {"kernels": rows}
 
@@ -767,8 +1066,9 @@ def main(argv=None) -> int:
                     help="comma-separated subset of "
                     + ",".join(ALL_PHASES + EXTRA_PHASES))
     ap.add_argument("--config", default="both",
-                    choices=("f32", "production", "both"),
-                    help="the agent configuration(s) the profile phase runs")
+                    choices=("f32", "production", "variants", "both", "all"),
+                    help="the agent configuration(s) the profile phase "
+                    "runs: one, both (f32 and production) or all three")
     ap.add_argument("--trace", default=None,
                     help="write the profile phase's chrome traces here "
                     "(one file per configuration, named after it)")
@@ -796,11 +1096,14 @@ def main(argv=None) -> int:
           "for cuDNN and matmul", flush=True)
 
     ctx = {"device": "cuda", "trace": args.trace, "config": args.config}
+    t_start = time.perf_counter()
     for name in ALL_PHASES + EXTRA_PHASES:
         if name in phases or name == "build":
             t0 = time.perf_counter()
             globals()[f"phase_{name}"](ctx)
             log(name, f"ok in {time.perf_counter() - t0:.1f} s")
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(kernels_line(ctx)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

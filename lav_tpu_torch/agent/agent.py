@@ -18,8 +18,9 @@ with lav_tpu's casts (`agent.py:107,213-220,291-292,308`): the seg
 softmax, the brake output, the head maps, the GRU rollouts, geometry, EKF
 and PID stay f32.  The stacked points enter the lidar model in the
 compute dtype, so pillar ids come from bf16 coordinates under bf16.
-`use_pallas` picks lav_tpu's pillar route (ops/pillar.py).  The models
-may carry int8 convs (`nn/quant.py`, `agent/setup.py`).
+`use_pallas` picks lav_tpu's pillar route (ops/pillar.py), and
+`s2d_crops` the planner's space-to-depth int8 crops (models/planner.py).
+The models may carry int8 convs (`nn/quant.py`, `agent/setup.py`).
 
 The diagnostic `skip` stages and the `det_override` option of lav_tpu's
 agent are not ported.
@@ -110,9 +111,12 @@ def _ego_hull_mask(pts):
 
 def build_agent(cfg: LAVConfig, *, num_ego: int = 1, max_points: int = 0,
                 camera_yaws=(-60, 0, 60), rgb_hw=(288, 256), cam_fov=64,
-                compute_dtype=None, use_pallas: bool = False, device=None):
+                compute_dtype=None, use_pallas: bool = False,
+                s2d_crops: bool = False, device=None):
     """Returns (init_state, step) for `num_ego` egos on `device` (default
     `cuda`; raises if no card is present and the CPU was not asked for).
+    use_pallas stands for lav_tpu's `BENCH_PALLAS=1`, s2d_crops for its
+    `LAV_S2D_CROPS=1`; both default off, as there.
 
     step(models, state, obs) -> (Control, AgentState, aux); models is an
     `AgentModels` on the same device.  obs per tick, each leading with E:
@@ -302,7 +306,8 @@ def build_agent(cfg: LAVConfig, *, num_ego: int = 1, max_points: int = 0,
         with record_function("agent/planner"):
             ego_plan_locs, ego_cast_cmd_locs, other_cast_locs, \
                 other_cast_cmds, other_valid = uniplanner_infer(
-                    models.uniplanner, cfg, feats, veh, cmd_eff, nxp)
+                    models.uniplanner, cfg, feats, veh, cmd_eff, nxp,
+                    s2d_crops=s2d_crops)
 
         # lane-change commands drive on the raw cast
         lc_eff = ((cmd_eff == 4) | (cmd_eff == 5))[:, None, None]

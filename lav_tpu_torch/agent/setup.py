@@ -13,6 +13,11 @@ ticks of a one-ego agent on seeded observations, on the target device.
 lav_tpu's committed scales (`artifacts/calib/`) belong to JAX-initialised
 weights; `utils/weights.py::load_calibration` applies them to converted
 lav_tpu params.
+
+bench.py's three variant routes are arguments here; the port reads no
+environment variable: `use_pallas` (`BENCH_PALLAS=1`), `s2d_crops`
+(`LAV_S2D_CROPS=1`) and `int8_upconv` (`LAV_INT8_UPCONV=1`, which
+quantizes the lidar backbone's three transposed convs too).
 """
 
 from __future__ import annotations
@@ -78,24 +83,31 @@ def calibrate_agent(models, cfg, max_points: int, img_hw, device):
 
 def v2_agent_setup(max_points: int = 8192, num_ego: int = 1,
                    img_hw=(288, 256), device=None, seed: int = 0,
-                   quant=None, compute_dtype=None, use_pallas: bool = False):
+                   quant=None, compute_dtype=None, use_pallas: bool = False,
+                   s2d_crops: bool = False, int8_upconv: bool = False):
     """Returns (step, models, state, obs, cfg) for the full-width v2 agent
     (3 cameras at img_hw, the 192x480 telephoto image) on `device`
     (default `cuda`; raises without a card unless `device='cpu'`).
     quant None or "mxu"; compute_dtype None (f32) or torch.bfloat16;
-    use_pallas picks the pillar route (ops/pillar.py)."""
+    use_pallas picks the pillar route (ops/pillar.py, `BENCH_PALLAS=1`);
+    s2d_crops the planner's space-to-depth int8 crops (`LAV_S2D_CROPS=1`);
+    int8_upconv, under "mxu", the int8 upconvs (`LAV_INT8_UPCONV=1`)."""
     if quant not in (None, "mxu"):
         raise ValueError(f"quant={quant!r}: None or 'mxu'")
+    if int8_upconv and quant != "mxu":
+        raise ValueError("int8_upconv needs quant='mxu'")
     dev = resolve_device(device)
     cfg = v2_config()
     init_state, step = build_agent(cfg, num_ego=num_ego,
                                    max_points=max_points, rgb_hw=img_hw,
                                    compute_dtype=compute_dtype,
-                                   use_pallas=use_pallas, device=dev)
+                                   use_pallas=use_pallas,
+                                   s2d_crops=s2d_crops, device=dev)
     gen = torch.Generator().manual_seed(seed)
     models = AgentModels(cfg, brake_version=2, gen=gen)
     if quant == "mxu":
-        Q.quantize_tree(models.lidar_model)
+        Q.quantize_tree(models.lidar_model,
+                        include=r"^upconv\d$" if int8_upconv else None)
         Q.quantize_tree(models.uniplanner)
     models = models.to(dev).eval()
     if quant:

@@ -17,6 +17,13 @@ With `q8_x_scale` the crops come out int8, quantized from the f32 sum
 clip(round(acc * inv_s), +-127), inv_s = 1/x_scale in f32, round half to
 even.  On the card that is kernel `crop_shared_q8`; the plain version is
 `grid_sample_shared_q8`.
+
+With `s2d` as well (lav_tpu's `LAV_S2D_CROPS=1` form, `warp_pallas.py:
+171-219`) the int8 crops come out space-to-depth, (B, K, Ho/2, Wo/2, 4C)
+in (dy, dx, c) channel order, the input form of the crop ResNet's 4x4
+stride-1 conv1 (`nn/quant.py::conv2d_int8_s2d`): kernel
+`crop_shared_q8_s2d`, the same sums and rounding as `crop_shared_q8`; the
+plain version is `grid_sample_shared_q8` followed by `space_to_depth`.
 """
 
 from __future__ import annotations
@@ -100,19 +107,33 @@ def grid_sample_shared_q8(src, grid, inv_s):
     return torch.clamp(torch.round(acc * inv_s), -127, 127).to(torch.int8)
 
 
+def space_to_depth(x):
+    """(B, K, H, W, C) -> (B, K, H/2, W/2, 4C), channel order (dy, dx, c)
+    (lav_tpu `core/warp.py:340-344`)."""
+    B, K, H, W, C = x.shape
+    x = x.reshape(B, K, H // 2, 2, W // 2, 2, C).permute(0, 1, 2, 4, 3, 5, 6)
+    return x.reshape(B, K, H // 2, W // 2, 4 * C)
+
+
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
-def crop_shared(src, grid, q8_x_scale=None):
+def crop_shared(src, grid, q8_x_scale=None, s2d: bool = False):
     """Kernel `crop_shared`: K bilinear crops per batch item from that
     item's own source.  src (B, H, W, C) f32 or bf16, grid (B, K, Ho, Wo, 2)
     f32 -> (B, K, Ho, Wo, C) in src's dtype, or int8 with `q8_x_scale` (a
-    0-dim f32 tensor; kernel `crop_shared_q8`).  CPU tensors take
-    `grid_sample_shared` / `grid_sample_shared_q8`."""
+    0-dim f32 tensor; kernel `crop_shared_q8`), or with `s2d` too int8
+    (B, K, Ho/2, Wo/2, 4C) (kernel `crop_shared_q8_s2d`; Ho, Wo even).
+    CPU tensors take `grid_sample_shared` / `grid_sample_shared_q8` (+
+    `space_to_depth`)."""
     q8 = q8_x_scale is not None
+    if s2d and not (q8 and grid.shape[2] % 2 == 0 and grid.shape[3] % 2 == 0):
+        raise ValueError(f"crop_shared: s2d needs q8_x_scale and an even "
+                         f"crop, got grid {tuple(grid.shape)}")
     if src.device.type == "cpu":
         if q8:
-            return grid_sample_shared_q8(src, grid, inverse_scale(q8_x_scale))
+            out = grid_sample_shared_q8(src, grid, inverse_scale(q8_x_scale))
+            return space_to_depth(out) if s2d else out
         return grid_sample_shared(src, grid)
     if src.device.type != "cuda" or grid.device != src.device:
         raise ValueError(f"crop_shared: src on {src.device}, grid on "
@@ -130,13 +151,15 @@ def crop_shared(src, grid, q8_x_scale=None):
     _, K, Ho, Wo, _ = grid.shape
     if H < 2 or W < 2:
         raise ValueError("crop_shared: source must be at least 2x2")
-    out = torch.empty((B, K, Ho, Wo, C),
+    out = torch.empty((B, K, Ho // 2, Wo // 2, 4 * C) if s2d else
+                      (B, K, Ho, Wo, C),
                       dtype=torch.int8 if q8 else src.dtype,
                       device=src.device)
     vec = 16 // src.element_size()
     if C % vec or src.data_ptr() % 16 or out.data_ptr() % 16:
         vec = 1
-    name = "crop_shared_q8" if q8 else "crop_shared"
+    name = ("crop_shared_q8_s2d" if s2d else
+            "crop_shared_q8" if q8 else "crop_shared")
     fn = getattr(_lib(), f"{name}_{_DTYPES[src.dtype]}")
     args = [src.data_ptr(), grid.data_ptr(), out.data_ptr()]
     if q8:
@@ -156,7 +179,9 @@ def crop_shared(src, grid, q8_x_scale=None):
 def _lib():
     lib = native.load("crop_shared")
     for name, nptr in (("crop_shared_f32", 3), ("crop_shared_bf16", 3),
-                       ("crop_shared_q8_f32", 4), ("crop_shared_q8_bf16", 4)):
+                       ("crop_shared_q8_f32", 4), ("crop_shared_q8_bf16", 4),
+                       ("crop_shared_q8_s2d_f32", 4),
+                       ("crop_shared_q8_s2d_bf16", 4)):
         fn = getattr(lib, name)
         if fn.argtypes is None:
             fn.argtypes = ([ctypes.c_void_p] * nptr + [ctypes.c_int] * 8
@@ -168,13 +193,14 @@ def _lib():
 def crop_feature_shared(features, rel_locs, rel_oris, *,
                         pixels_per_meter: float, crop_size: int,
                         offset_x: float = 0.0, offset_y: float = 0.75,
-                        q8_x_scale=None):
+                        q8_x_scale=None, s2d: bool = False):
     """K rotated crops from one feature map per batch item.
 
     features (H, W, C) with rel_locs (K, 2) meters and rel_oris (K,) radians
     -> (K, crop, crop, C); or features (B, H, W, C) with (B, K, 2) / (B, K)
     -> (B, K, crop, crop, C).  One `crop_shared` launch for all crops;
-    int8 crops with `q8_x_scale`."""
+    int8 crops with `q8_x_scale`, space-to-depth (.., crop/2, crop/2, 4C)
+    with `s2d` as well (lav_tpu's `q8_s2d`)."""
     single = features.ndim == 3
     if single:
         features, rel_locs, rel_oris = (features[None], rel_locs[None],
@@ -185,5 +211,5 @@ def crop_feature_shared(features, rel_locs, rel_oris, *,
                        crop_size, offset_x, offset_y)
     grid = affine_grid(theta, crop_size, crop_size)
     grid = grid.reshape(B, K, crop_size, crop_size, 2).contiguous()
-    crops = crop_shared(features.contiguous(), grid, q8_x_scale)
+    crops = crop_shared(features.contiguous(), grid, q8_x_scale, s2d)
     return crops[0] if single else crops

@@ -1,10 +1,24 @@
 // conv2d_int8: int8 x int8 -> int32 convolution, dequantized in the
 // epilogue.  NHWC activations, OHWI weights (each output channel's
-// (ky, kx, c) run contiguous), any stride, padding and dilation.
+// (ky, kx, c) run contiguous), any stride, kernel dilation, padding (top
+// and left given, the bottom and right ones implied by OH, OW) and input
+// (lhs) dilation.
 //
 // Replaces lav_tpu/nn/quant.py::conv2d_int8 (quant.py:246-273), which the
 // TPU ran as XLA's s8 convolution on the MXU (preferred_element_type
-// int32) rather than as a Pallas kernel.  PyTorch has no int8 convolution
+// int32) rather than as a Pallas kernel, and its two other s8 forms:
+// conv2d_int8_s2d (quant.py:219-243, the planner's conv1 as a 4x4
+// stride-1 conv over space-to-depth crops, padding ((2,1),(2,1))) and
+// conv_transpose2d_int8 (quant.py:149-166, a transposed conv as the
+// equivalent conv over the input dilated by the stride, with the flipped
+// kernel and padding (k-1-p, k-1-p+output_padding)).
+//
+// Input dilation: tap (ky, kx) of output (oh, ow) reads the dilated image
+// at u = oh*sh - pad_top + ky*dh (likewise v for columns); that holds
+// input row u / lh when u % lh == 0 and 0 <= u / lh < H, and zero
+// otherwise.  The kernel walks every tap of the dilated window, zeros
+// included: for a stride-s transposed conv that is s*s times the useful
+// MMA work (a later kernel can skip the zero taps).  PyTorch has no int8 convolution
 // on CUDA, and im2col + an int8 matmul would materialise ~11 GB for the
 // planner's conv1 at 16 egos, so it is a kernel here.
 //
@@ -42,7 +56,7 @@ constexpr int kThreads = 128;
 constexpr int kStrideW = 12;  // shared-memory row stride, 32-bit words
 
 struct Geom {
-  int N, H, W, C, O, KH, KW, sh, sw, ph, pw, dh, dw, OH, OW;
+  int N, H, W, C, O, KH, KW, sh, sw, ph, pw, dh, dw, lh, lw, OH, OW;
 };
 
 template <typename T> __device__ __forceinline__ T from_f(float v);
@@ -63,7 +77,9 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-template <typename OutT>
+// kDil: the input is dilated (lh or lw > 1); without it the tap test is
+// the plain bounds check, with no integer division on the load path.
+template <typename OutT, bool kDil>
 __global__ void __launch_bounds__(kThreads)
     conv2d_int8_kernel(const int8_t* __restrict__ x,
                        const int8_t* __restrict__ w,
@@ -104,10 +120,16 @@ __global__ void __launch_bounds__(kThreads)
     const int c0 = (ks - tap * csteps) * BK + lhalf * 16;
     const int ky = tap / g.KW;
     const int kx = tap - ky * g.KW;
-    const int iy = iy0 + ky * g.dh;
-    const int ix = ix0 + kx * g.dw;
+    int iy = iy0 + ky * g.dh;  // row and column of the (dilated) input
+    int ix = ix0 + kx * g.dw;
+    bool ok = m_ok && iy >= 0 && ix >= 0;
+    if constexpr (kDil) {
+      ok = ok && iy % g.lh == 0 && ix % g.lw == 0;
+      iy /= g.lh;
+      ix /= g.lw;
+    }
     av = make_uint4(0u, 0u, 0u, 0u);
-    if (m_ok && iy >= 0 && iy < g.H && ix >= 0 && ix < g.W)
+    if (ok && iy < g.H && ix < g.W)
       av = *reinterpret_cast<const uint4*>(
           xb + ((size_t)iy * g.W + ix) * g.C + c0);
     bv = make_uint4(0u, 0u, 0u, 0u);
@@ -187,24 +209,30 @@ int launch(const void* x, const void* w, const void* w_scale,
   const long long bx = (M + BM - 1) / BM;
   if (bx > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   dim3 grid((unsigned)bx, (unsigned)((g.O + BN - 1) / BN), 1);
-  conv2d_int8_kernel<OutT><<<grid, kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = (g.lh > 1 || g.lw > 1) ? conv2d_int8_kernel<OutT, true>
+                                       : conv2d_int8_kernel<OutT, false>;
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
       static_cast<const float*>(w_scale), static_cast<const float*>(x_scale),
       static_cast<const float*>(bias), static_cast<OutT*>(out), g);
   return (int)cudaGetLastError();
 }
 
+// geom: N, H, W, C, O, KH, KW, sh, sw, pad_top, pad_left, dh, dw, lh, lw,
+// OH, OW (17 ints)
+Geom make_geom(const int* q) {
+  return Geom{q[0], q[1], q[2],  q[3],  q[4],  q[5],  q[6],  q[7], q[8],
+              q[9], q[10], q[11], q[12], q[13], q[14], q[15], q[16]};
+}
+
 }  // namespace
 
-// geom: N, H, W, C, O, KH, KW, sh, sw, ph, pw, dh, dw, OH, OW (15 ints)
 extern "C" int conv2d_int8_bf16(const void* x, const void* w,
                                 const void* w_scale, const void* x_scale,
                                 const void* bias, void* out, const int* geom,
                                 void* stream) {
-  const Geom g{geom[0], geom[1], geom[2],  geom[3],  geom[4],
-               geom[5], geom[6], geom[7],  geom[8],  geom[9],
-               geom[10], geom[11], geom[12], geom[13], geom[14]};
+  const Geom g = make_geom(geom);
+  if (g.lh < 1 || g.lw < 1) return (int)cudaErrorInvalidValue;
   return launch<__nv_bfloat16>(x, w, w_scale, x_scale, bias, out, g, stream);
 }
 
@@ -212,8 +240,7 @@ extern "C" int conv2d_int8_f32(const void* x, const void* w,
                                const void* w_scale, const void* x_scale,
                                const void* bias, void* out, const int* geom,
                                void* stream) {
-  const Geom g{geom[0], geom[1], geom[2],  geom[3],  geom[4],
-               geom[5], geom[6], geom[7],  geom[8],  geom[9],
-               geom[10], geom[11], geom[12], geom[13], geom[14]};
+  const Geom g = make_geom(geom);
+  if (g.lh < 1 || g.lw < 1) return (int)cudaErrorInvalidValue;
   return launch<float>(x, w, w_scale, x_scale, bias, out, g, stream);
 }

@@ -31,6 +31,17 @@
 // even, as jnp.round and torch.round do.  Bound: bytes again; the int8
 // output (57 MB for 16 crops of 96x96x384 per ego) is half the bf16 one,
 // so the crop write halves.
+//
+// q8 space-to-depth entries (crop_shared_q8_s2d_{f32,bf16}): the TPU
+// kernel's s2d=True emit (warp_pallas.py:171-219), the input form of the
+// int8 crop ResNet's 4x4 stride-1 conv1 (lav_tpu nn/quant.py
+// conv2d_int8_s2d).  The sums and the rounding are crop_shared_q8's; only
+// the store moves: crop pixel (y, x), channel c goes to
+// out[b, k, y/2, x/2, ((y%2)*2 + x%2)*C + c], the (dy, dx, c) channel
+// order of warp_pallas.py:250-253.  Ho and Wo must be even.  The TPU
+// kernel regrouped phases inside its matmul tiles; here a thread's
+// 16-byte vector simply lands C bytes further along its pixel's 4C row,
+// so the bytes moved are K1-q8's.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -65,13 +76,14 @@ __device__ __forceinline__ int8_t quantize(float acc, float inv_s) {
 
 constexpr int kPixPerBlock = 32;
 
-// OutT is T for the plain crop and int8_t for the q8 epilogue.
-template <typename T, int V, typename OutT>
+// OutT is T for the plain crop and int8_t for the q8 epilogue; S2D stores
+// the q8 crop space-to-depth.
+template <typename T, int V, typename OutT, bool S2D>
 __global__ void crop_shared_kernel(const T* __restrict__ src,
                                    const float* __restrict__ grid,
                                    OutT* __restrict__ out,
                                    const float* __restrict__ inv_s, int H,
-                                   int W, int C, int K, int npix) {
+                                   int W, int C, int K, int npix, int Wo) {
   constexpr bool kQ8 = std::is_same<OutT, int8_t>::value;
   const float inv = kQ8 ? *inv_s : 0.0f;
   const int b = blockIdx.z;
@@ -103,6 +115,11 @@ __global__ void crop_shared_kernel(const T* __restrict__ src,
     const T* r10 = r00 + (size_t)W * C;
     const T* r11 = r10 + C;
     OutT* op = o + (size_t)p * C;
+    if constexpr (S2D) {
+      const int y = p / Wo, x = p - y * Wo;
+      op = o + ((size_t)(y >> 1) * (Wo >> 1) + (x >> 1)) * 4 * C +
+           ((y & 1) * 2 + (x & 1)) * C;
+    }
     for (int c = threadIdx.x; c < nvec; c += blockDim.x) {
       const Vec<T, V> a = reinterpret_cast<const Vec<T, V>*>(r00)[c];
       const Vec<T, V> bq = reinterpret_cast<const Vec<T, V>*>(r01)[c];
@@ -125,7 +142,7 @@ __global__ void crop_shared_kernel(const T* __restrict__ src,
   }
 }
 
-template <typename T, int V, typename OutT>
+template <typename T, int V, typename OutT, bool S2D>
 int launch(const void* src, const void* grid, void* out, const void* inv_s,
            int B, int H, int W, int C, int K, int Ho, int Wo,
            cudaStream_t stream) {
@@ -135,25 +152,26 @@ int launch(const void* src, const void* grid, void* out, const void* inv_s,
   block.y = 256 / block.x > kPixPerBlock ? kPixPerBlock : 256 / block.x;
   if (block.y < 1) block.y = 1;
   dim3 grid_dim((npix + kPixPerBlock - 1) / kPixPerBlock, K, B);
-  crop_shared_kernel<T, V, OutT><<<grid_dim, block, 0, stream>>>(
+  crop_shared_kernel<T, V, OutT, S2D><<<grid_dim, block, 0, stream>>>(
       static_cast<const T*>(src), static_cast<const float*>(grid),
       static_cast<OutT*>(out), static_cast<const float*>(inv_s), H, W, C, K,
-      npix);
+      npix, Wo);
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename OutT>
+template <typename T, typename OutT, bool S2D = false>
 int dispatch(const void* src, const void* grid, void* out, const void* inv_s,
              int B, int H, int W, int C, int K, int Ho, int Wo, int vec,
              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B == 0 || K == 0 || Ho * Wo == 0 || C == 0) return 0;
+  if (S2D && (Ho % 2 || Wo % 2)) return (int)cudaErrorInvalidValue;
   constexpr int VMAX = 16 / sizeof(T);
   if (vec == VMAX)
-    return launch<T, VMAX, OutT>(src, grid, out, inv_s, B, H, W, C, K, Ho,
+    return launch<T, VMAX, OutT, S2D>(src, grid, out, inv_s, B, H, W, C, K,
+                                      Ho, Wo, st);
+  return launch<T, 1, OutT, S2D>(src, grid, out, inv_s, B, H, W, C, K, Ho,
                                  Wo, st);
-  return launch<T, 1, OutT>(src, grid, out, inv_s, B, H, W, C, K, Ho, Wo,
-                            st);
 }
 
 }  // namespace
@@ -186,4 +204,20 @@ extern "C" int crop_shared_q8_bf16(const void* src, const void* grid,
                                    int vec, void* stream) {
   return dispatch<__nv_bfloat16, int8_t>(src, grid, out, inv_s, B, H, W, C,
                                          K, Ho, Wo, vec, stream);
+}
+
+extern "C" int crop_shared_q8_s2d_f32(const void* src, const void* grid,
+                                      void* out, const void* inv_s, int B,
+                                      int H, int W, int C, int K, int Ho,
+                                      int Wo, int vec, void* stream) {
+  return dispatch<float, int8_t, true>(src, grid, out, inv_s, B, H, W, C, K,
+                                       Ho, Wo, vec, stream);
+}
+
+extern "C" int crop_shared_q8_s2d_bf16(const void* src, const void* grid,
+                                       void* out, const void* inv_s, int B,
+                                       int H, int W, int C, int K, int Ho,
+                                       int Wo, int vec, void* stream) {
+  return dispatch<__nv_bfloat16, int8_t, true>(src, grid, out, inv_s, B, H,
+                                               W, C, K, Ho, Wo, vec, stream);
 }

@@ -9,7 +9,9 @@ runs on its own.
 
 Under int8 (`nn/quant.py`) the backbone convs and each head's 3x3 conv
 run `conv2d_int8`; the entry block `conv1_0`, the `upconv*` blocks and
-each head's `up` stay float.  lav_tpu merges the heads into one conv that
+each head's `up` stay float, unless `quantize_tree(include=
+r"^upconv\\d$")` (lav_tpu's `LAV_INT8_UPCONV=1`) turns the three
+`upconv*` transposed convs int8 too.  lav_tpu merges the heads into one conv that
 quantizes its shared input once, with the max of the four heads'
 activation scales; each head here quantizes with that same max.
 """

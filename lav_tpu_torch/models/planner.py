@@ -13,7 +13,9 @@ When the crop ResNet's `conv1` is int8 with a calibrated `x_scale`, the
 crops come out int8, quantized with that scale in the crop kernel's
 epilogue (lav_tpu `planner.py:551-568`), and `conv1` consumes them as
 they are; in calibration the crops stay float so that `conv1` observes
-them.
+them.  With `s2d_crops` (lav_tpu's `LAV_S2D_CROPS=1`) such q8 crops of
+even size come out space-to-depth and `conv1` runs as the 4x4 stride-1
+`quant.conv2d_int8_s2d`.
 """
 
 from __future__ import annotations
@@ -100,7 +102,7 @@ def conv_emb(net, x):
 
 
 def uniplanner_infer(core: UniPlanner, cfg: LAVConfig, features, det, cmd,
-                     nxp):
+                     nxp, s2d_crops: bool = False):
     """Fused planner inference for B egos.
 
     features (B, Hf, Wf, Cf) lidar backbone maps; det: vehicle-class
@@ -127,10 +129,11 @@ def uniplanner_infer(core: UniPlanner, cfg: LAVConfig, features, det, cmd,
     c1 = core.lidar_conv_emb.conv1
     q8 = (c1.x_scale if c1.w_int8 is not None and not quant.calibrating()
           else None)
+    s2d = s2d_crops and q8 is not None and cfg.crop_size % 2 == 0
     crops = crop_feature_shared(features, all_locs, all_oris,
                                 pixels_per_meter=ppm / 2,
                                 crop_size=cfg.crop_size,
-                                offset_y=cfg.y_offset, q8_x_scale=q8)
+                                offset_y=cfg.y_offset, q8_x_scale=q8, s2d=s2d)
     embd = conv_emb(core.lidar_conv_emb,
                     crops.reshape(B * (K + 1), *crops.shape[2:]))
     all_cast = cast(core, embd, T).reshape(B, K + 1, cfg.num_cmds, T, 2)

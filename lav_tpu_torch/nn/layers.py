@@ -82,21 +82,23 @@ class Conv2d(nn.Module):
         self.register_buffer("w_int8", None)
         self.register_buffer("w_scale", None)
         self.register_buffer("x_scale", None)
+        self._s2d = None
 
     def quantize_(self, w_int8=None, w_scale=None):
         """Switch to int8 weights, quantized from `w` unless given."""
         if w_int8 is None:
             w_int8, w_scale = quant.quantize_conv(self.w)
-        kh, kw = self.ksize
-        if tuple(w_int8.shape) != (self.cout, kh, kw, self.cin) or \
-                w_int8.dtype != torch.int8:
-            raise ValueError(f"int8 weight {w_int8.dtype} "
-                             f"{tuple(w_int8.shape)} for a conv "
-                             f"{self.cin}->{self.cout} {kh}x{kw}")
-        self.w = None
-        self.w_int8 = w_int8
-        self.w_scale = w_scale.float()
+        _set_int8(self, w_int8, w_scale)
         return self
+
+    def s2d_weight(self):
+        """`quant.s2d_weight` of w_int8, derived once and kept while
+        w_int8 stays the same tensor with the same contents."""
+        w = self.w_int8
+        key = (w.device, w.data_ptr(), w._version)
+        if self._s2d is None or self._s2d[0] != key:
+            self._s2d = (key, quant.s2d_weight(w))
+        return self._s2d[1]
 
     def forward(self, x, x_scale=None):
         if self.w_int8 is not None:
@@ -107,24 +109,58 @@ class Conv2d(nn.Module):
                         self.dilation)
 
 
+def _set_int8(conv, w_int8, w_scale):
+    """Give `conv` its int8 weight (O, KH, KW, I) and scales in place of
+    the float `w`."""
+    kh, kw = conv.ksize
+    if tuple(w_int8.shape) != (conv.cout, kh, kw, conv.cin) or \
+            w_int8.dtype != torch.int8:
+        raise ValueError(f"int8 weight {w_int8.dtype} {tuple(w_int8.shape)} "
+                         f"for a conv {conv.cin}->{conv.cout} {kh}x{kw}")
+    conv.w = None
+    conv.w_int8 = w_int8
+    conv.w_scale = w_scale.float()
+
+
 class ConvTranspose2d(nn.Module):
     """torch.nn.ConvTranspose2d; w is (in, out, kh, kw).  lav_tpu stores
     the equivalent input-dilated conv's kernel, flipped at apply time, as
-    HWIO (kh, kw, in, out) — the same numbers in another order."""
+    HWIO (kh, kw, in, out) — the same numbers in another order.
+
+    `quantize_` switches it to lav_tpu's int8 form (`LAV_INT8_UPCONV=1`,
+    `quant.conv_transpose2d_int8`): buffers `w_int8`, the flipped
+    equivalent conv's kernel (O, KH, KW, I) with per-output-channel scales
+    `w_scale` (O,), and `x_scale` once calibrated."""
 
     def __init__(self, cin: int, cout: int, ksize, stride=1, padding=0,
                  output_padding=0, bias: bool = True, gen=None):
         super().__init__()
         kh, kw = _pair(ksize)
         fan_in = cout * kh * kw  # torch's transposed fan
+        self.cin, self.cout, self.ksize = cin, cout, (kh, kw)
         self.w = nn.Parameter(
             _uniform(gen, (cin, cout, kh, kw), _kaiming_bound(fan_in)))
         self.b = (nn.Parameter(_uniform(gen, (cout,), _bias_bound(fan_in)))
                   if bias else None)
         self.stride, self.padding = _pair(stride), _pair(padding)
         self.output_padding = _pair(output_padding)
+        self.register_buffer("w_int8", None)
+        self.register_buffer("w_scale", None)
+        self.register_buffer("x_scale", None)
+
+    def quantize_(self, w_int8=None, w_scale=None):
+        """Switch to int8 weights, quantized from `w` (as the flipped
+        equivalent conv's kernel) unless given."""
+        if w_int8 is None:
+            w_conv = self.w.detach().transpose(0, 1).flip(2, 3)
+            w_int8, w_scale = quant.quantize_conv(w_conv)
+        _set_int8(self, w_int8, w_scale)
+        return self
 
     def forward(self, x):
+        if self.w_int8 is not None:
+            y = quant.conv_transpose2d_int8(self, nchw_to_nhwc(x))
+            return nhwc_to_nchw(y)
         b = None if self.b is None else self.b.to(x.dtype)
         return F.conv_transpose2d(x, self.w.to(x.dtype), b, self.stride,
                                   self.padding, self.output_padding)

@@ -16,9 +16,17 @@ Scheme, as lav_tpu's:
 
 `calibrate` runs a forward in observer mode: every int8 conv it reaches
 records max(absmax, 1e-12)/127 of its input into its own `x_scale` (the
-max over calls).  `LAV_INT8_UPCONV`'s `conv_transpose2d_int8` and
-`LAV_S2D_CROPS`'s `conv2d_int8_s2d` are default-off in lav_tpu and not
-ported.
+max over calls).
+
+lav_tpu's two default-off forms run through the same kernel:
+  * `conv2d_int8_s2d` (`LAV_S2D_CROPS=1`): the crop ResNet's 7x7 stride-2
+    conv1 as a 4x4 stride-1 conv over space-to-depth int8 crops, with a
+    weight derived from conv1's (embedded at +1 in 8x8, blocked 2x2) and
+    padding ((2, 1), (2, 1));
+  * `conv_transpose2d_int8` (`LAV_INT8_UPCONV=1`, `quantize_tree(include=
+    r"^upconv\\d$")`): an int8 `layers.ConvTranspose2d` as the equivalent
+    conv over its input dilated by the stride, with the flipped kernel and
+    padding (k-1-p, k-1-p+output_padding) per axis.
 """
 
 from __future__ import annotations
@@ -48,17 +56,23 @@ def quantize_conv(w):
     return wq.to(torch.int8).permute(0, 2, 3, 1).contiguous(), scale
 
 
-def quantize_tree(module, *, min_channels: int = 16):
-    """Switch every forward conv under `module` with at least
-    `min_channels` input channels to int8, skipping the `_SKIP_KEYS`
-    subtrees; returns `module`."""
-    from lav_tpu_torch.nn.layers import Conv2d
+def quantize_tree(module, *, min_channels: int = 16, include=None):
+    """Switch every conv under `module` with at least `min_channels` input
+    channels to int8, skipping the `_SKIP_KEYS` subtrees unless their name
+    matches `include` (a regex; lav_tpu's `LAV_INT8_UPCONV=1` passes
+    r"^upconv\\d$"); a transposed conv is reached only through such a
+    subtree.  Returns `module`."""
+    from lav_tpu_torch.nn.layers import Conv2d, ConvTranspose2d
+
+    if isinstance(include, str):
+        include = re.compile(include)
 
     def walk(m):
         for name, child in m.named_children():
-            if _SKIP_KEYS.match(name):
+            if _SKIP_KEYS.match(name) and not (include is not None
+                                               and include.match(name)):
                 continue
-            if isinstance(child, Conv2d):
+            if isinstance(child, (Conv2d, ConvTranspose2d)):
                 if child.cin >= min_channels and child.w_int8 is None:
                     child.quantize_()
             else:
@@ -112,6 +126,46 @@ def quantize_act(x, s_x):
         torch.int8)
 
 
+def conv2d_int8_s2d(conv, x_s2d, out_dtype=torch.bfloat16):
+    """lav_tpu's conv2d_int8_s2d: the int8 7x7 stride-2 padding-3 `conv`
+    over space-to-depth int8 input x_s2d (B, H/2, W/2, 4C) in (dy, dx, c)
+    channel order (kernel `crop_shared_q8_s2d`, quantized with conv's
+    x_scale), as a 4x4 stride-1 conv with padding ((2, 1), (2, 1)): the same
+    int32 sums as the direct conv on the un-reshuffled crops."""
+    if conv.x_scale is None:
+        raise ValueError("conv2d_int8_s2d: int8 input needs a calibrated "
+                         "x_scale")
+    return conv2d_int8_nhwc(x_s2d, conv.s2d_weight(), conv.w_scale,
+                            conv.x_scale, conv.b, (1, 1), ((2, 1), (2, 1)),
+                            (1, 1), out_dtype)
+
+
+def s2d_weight(w_int8):
+    """conv1's (O, 7, 7, C) int8 weight -> the (O, 4, 4, 4C) weight of the
+    4x4 stride-1 conv over space-to-depth input (lav_tpu quant.py:230-234):
+    embedded at +1 in 8x8, each 2x2 block folded into channels (dy, dx, c)."""
+    O, KH, KW, C = w_int8.shape
+    if KH > 7 or KW > 7:
+        raise ValueError(f"s2d_weight: a {KH}x{KW} kernel does not fit 8x8")
+    w8 = w_int8.new_zeros((O, 8, 8, C))
+    w8[:, 1:1 + KH, 1:1 + KW] = w_int8
+    w8 = w8.reshape(O, 4, 2, 4, 2, C).permute(0, 1, 3, 2, 4, 5)
+    return w8.reshape(O, 4, 4, 4 * C).contiguous()
+
+
+def conv_transpose2d_int8(conv, x):
+    """lav_tpu's conv_transpose2d_int8 for an int8 `layers.ConvTranspose2d`
+    on NHWC float x: x quantized with `act_scale`, then the conv over x
+    dilated by the stride with the flipped kernel (conv.w_int8) and
+    padding (k-1-p, k-1-p+output_padding) per axis; output in x's dtype."""
+    pad = tuple((k - 1 - p, k - 1 - p + op) for k, p, op in zip(
+        conv.ksize, conv.padding, conv.output_padding))
+    s_x = act_scale(conv, x)
+    return conv2d_int8_nhwc(quantize_act(x, s_x), conv.w_int8, conv.w_scale,
+                            s_x, conv.b, (1, 1), pad, (1, 1), x.dtype,
+                            lhs_dilation=conv.stride)
+
+
 def conv2d_int8(conv, x, out_dtype=None, x_scale=None):
     """lav_tpu's conv2d_int8 for an int8 `layers.Conv2d` on NHWC x.
 
@@ -134,10 +188,20 @@ def conv2d_int8(conv, x, out_dtype=None, x_scale=None):
                             out_dtype)
 
 
-def _out_hw(H, W, KH, KW, stride, padding, dilation):
-    OH = (H + 2 * padding[0] - dilation[0] * (KH - 1) - 1) // stride[0] + 1
-    OW = (W + 2 * padding[1] - dilation[1] * (KW - 1) - 1) // stride[1] + 1
-    return OH, OW
+def _pads(padding):
+    """(h, w) symmetric pads or ((top, bottom), (left, right)) -> the
+    latter."""
+    return tuple((p, p) if isinstance(p, int) else tuple(p) for p in padding)
+
+
+def _out_hw(H, W, KH, KW, stride, padding, dilation, lhs_dilation):
+    """Output size over the input dilated by `lhs_dilation` and padded by
+    `padding` ((top, bottom), (left, right))."""
+    out = []
+    for n, k, s, (p0, p1), d, l in zip((H, W), (KH, KW), stride, padding,
+                                       dilation, lhs_dilation):
+        out.append(((n - 1) * l + 1 + p0 + p1 - d * (k - 1) - 1) // s + 1)
+    return tuple(out)
 
 
 # the plain version sums in f32 over input-channel chunks small enough that
@@ -147,13 +211,23 @@ _EXACT_F32 = 2 ** 24
 
 
 def conv2d_int8_plain(xq, w_int8, w_scale, s_x, b, stride, padding,
-                      dilation, out_dtype):
+                      dilation, out_dtype, lhs_dilation=(1, 1)):
     """Plain version of kernel `conv2d_int8`: xq (N, H, W, C) int8, w_int8
     (O, KH, KW, C) int8, w_scale (O,) f32, s_x 0-dim f32, b (O,) or None
-    -> (N, OH, OW, O) out_dtype.  The int32 sum is exact."""
+    -> (N, OH, OW, O) out_dtype.  padding is (h, w) or ((top, bottom),
+    (left, right)); lhs_dilation inserts zeros between input pixels.  The
+    int32 sum is exact."""
     O, KH, KW, C = w_int8.shape
     chunk = max(1, (_EXACT_F32 - 1) // (127 * 127 * KH * KW))
     x = xq.permute(0, 3, 1, 2)
+    lh, lw = lhs_dilation
+    if (lh, lw) != (1, 1):
+        N, _, H, W = x.shape
+        xd = x.new_zeros((N, C, (H - 1) * lh + 1, (W - 1) * lw + 1))
+        xd[:, :, ::lh, ::lw] = x
+        x = xd
+    (pt, pb), (pl, pr) = _pads(padding)
+    x = F.pad(x, (pl, pr, pt, pb))
     w = w_int8.permute(0, 3, 1, 2)
     acc = None
     # cuDNN may pick Winograd or FFT, which are not exact; PyTorch's own
@@ -161,8 +235,8 @@ def conv2d_int8_plain(xq, w_int8, w_scale, s_x, b, stride, padding,
     with torch.backends.cudnn.flags(enabled=False):
         for c0 in range(0, C, chunk):
             part = F.conv2d(x[:, c0:c0 + chunk].float(),
-                            w[:, c0:c0 + chunk].float(), None, stride,
-                            padding, dilation).to(torch.int32)
+                            w[:, c0:c0 + chunk].float(), None, stride, 0,
+                            dilation).to(torch.int32)
             acc = part if acc is None else acc + part
     y = acc.float() * (s_x * w_scale)[:, None, None]
     if b is not None:
@@ -174,13 +248,13 @@ _OUT = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 
 def conv2d_int8_nhwc(xq, w_int8, w_scale, s_x, b, stride, padding, dilation,
-                     out_dtype):
+                     out_dtype, lhs_dilation=(1, 1)):
     """Kernel `conv2d_int8` (contract of `conv2d_int8_plain`); stride,
-    padding and dilation are (h, w) pairs.  CPU tensors take the plain
-    version."""
+    dilation and lhs_dilation are (h, w) pairs, padding (h, w) or ((top,
+    bottom), (left, right)).  CPU tensors take the plain version."""
     if xq.device.type == "cpu":
         return conv2d_int8_plain(xq, w_int8, w_scale, s_x, b, stride,
-                                 padding, dilation, out_dtype)
+                                 padding, dilation, out_dtype, lhs_dilation)
     dev = xq.device
     tensors = [w_int8, w_scale, s_x] + ([] if b is None else [b])
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
@@ -197,7 +271,11 @@ def conv2d_int8_nhwc(xq, w_int8, w_scale, s_x, b, stride, padding, dilation,
         raise ValueError(f"conv2d_int8: x {tuple(xq.shape)}, w "
                          f"{tuple(w_int8.shape)}; C must match and be a "
                          "multiple of 32")
-    OH, OW = _out_hw(H, W, KH, KW, stride, padding, dilation)
+    pads = _pads(padding)
+    OH, OW = _out_hw(H, W, KH, KW, stride, pads, dilation, lhs_dilation)
+    if OH < 1 or OW < 1 or min(lhs_dilation) < 1:
+        raise ValueError(f"conv2d_int8: empty output {OH}x{OW} or "
+                         f"lhs_dilation {lhs_dilation}")
     xq = xq.contiguous()
     w_scale = w_scale.float().contiguous()
     s_x = s_x.float().reshape(1).contiguous()
@@ -207,9 +285,10 @@ def conv2d_int8_nhwc(xq, w_int8, w_scale, s_x, b, stride, padding, dilation,
         raise ValueError("conv2d_int8: x and w must be contiguous and "
                          "16-byte aligned")
     out = torch.empty((N, OH, OW, O), dtype=out_dtype, device=dev)
-    geom = (ctypes.c_int * 15)(N, H, W, C, O, KH, KW, stride[0], stride[1],
-                               padding[0], padding[1], dilation[0],
-                               dilation[1], OH, OW)
+    geom = (ctypes.c_int * 17)(N, H, W, C, O, KH, KW, stride[0], stride[1],
+                               pads[0][0], pads[1][0], dilation[0],
+                               dilation[1], lhs_dilation[0],
+                               lhs_dilation[1], OH, OW)
     fn = getattr(_lib(), f"conv2d_int8_{_OUT[out_dtype]}")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

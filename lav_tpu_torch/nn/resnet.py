@@ -3,21 +3,26 @@
 
 Submodule names follow lav_tpu's params (`conv1`, `bn1`, `layer{s}_{b}`
 blocks with `conv1/bn1/conv2/bn2` and `down_conv/down_bn`).  lav_tpu's
-space-to-depth rewrite of the entry conv is a TPU layout tactic computing
-the same products; here the entry conv is the plain 7x7 stride-2 conv.
-Under int8 (`nn/quant.py`) an int8 `conv1` consumes int8 input (the
-planner's q8 crops) as it is and emits bf16; every later layer runs in
-bf16.
+space-to-depth rewrite of a float entry conv (`_conv1_space_to_depth`) is
+a TPU layout tactic computing the same products; here a float entry conv
+is the plain 7x7 stride-2 conv.  Under int8 (`nn/quant.py`) an int8
+`conv1` consumes int8 input (the planner's q8 crops) as it is and emits
+bf16; int8 input with 4x conv1's channels holds space-to-depth crops
+(lav_tpu's `LAV_S2D_CROPS=1`, `resnet.py:126-133`) and takes
+`quant.conv2d_int8_s2d`, the same int32 sums as the direct conv.  Every
+later layer runs in bf16.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
 from lav_tpu_torch.nn import layers as L
+from lav_tpu_torch.nn import quant
 
 
 class BasicBlock(nn.Module):
@@ -63,7 +68,13 @@ class ResNet(nn.Module):
                 cin = cout
 
     def forward(self, x):
-        out = F.relu(self.bn1(self.conv1(x)))
+        c1 = self.conv1
+        if (x.dtype == torch.int8 and c1.w_int8 is not None
+                and x.shape[1] == 4 * c1.cin):
+            out = L.nhwc_to_nchw(quant.conv2d_int8_s2d(c1, L.nchw_to_nhwc(x)))
+        else:
+            out = c1(x)
+        out = F.relu(self.bn1(out))
         out = F.max_pool2d(out, 3, 2, 1)
         for name in self.block_names:
             out = getattr(self, name)(out)

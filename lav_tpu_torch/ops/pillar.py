@@ -14,9 +14,12 @@ exactly 0 (LAV's zero canvas).  Both of lav_tpu's routes are here:
     the B * ny * nx canvas rows, which is sliced off.  lav_tpu sorts the
     points first, a TPU tactic for its scatters; the sort changes only the
     order of the f32 decoration sums.
-  use_pallas=True: each item has its own dump slot (pid + b * (ny*nx+1));
-    masked points carry NEG and the canvas is kernel `pillar_scatter_max`
-    (NEG-init, NEG -> 0), the port of `pillar_scatter_max_pallas`; f32.
+  use_pallas=True (`BENCH_PALLAS=1` in lav_tpu's bench): each item has its
+    own dump slot (pid + b * (ny*nx+1)); masked points carry NEG and the
+    canvas is kernel `pillar_scatter_max` (NEG-init, NEG -> 0), the port
+    of `pillar_scatter_max_pallas`, in f32 or bf16 (counted as
+    `pillar_scatter_max_bf16`).  In bf16 NEG is -1e30 rounded to bf16, and
+    the canvas compares in bf16, as the Pallas kernel does.
 
 Kernels `scatter_max` and `scatter_add` (csrc/pillar_scatter.cu) port
 lav_tpu's Pallas `scatter_pallas` (ops/pillar_pallas2.py), and
@@ -93,53 +96,66 @@ def decorate_points(points, pid, keep, ix, iy, *, min_x: float, min_y: float,
 
 
 def pillar_scatter_max_plain(feat, pid, num_segments: int):
-    """Plain version of kernel `pillar_scatter_max`: feat (N, C) f32, pid
-    (N,) in [0, num_segments) -> (num_segments, C): NEG-filled canvas,
-    max over the points, NEG -> 0."""
+    """Plain version of kernel `pillar_scatter_max`: feat (N, C) f32 or
+    bf16, pid (N,) in [0, num_segments) -> (num_segments, C): a canvas
+    filled with NEG in feat's dtype, max over the points, values not above
+    that NEG -> 0."""
     C = feat.shape[-1]
     canvas = torch.full((num_segments, C), NEG, dtype=feat.dtype,
                         device=feat.device)
+    neg = torch.tensor(NEG, dtype=feat.dtype, device=feat.device)
     canvas.scatter_reduce_(0, pid.long()[:, None].expand(-1, C), feat,
                            "amax", include_self=True)
-    return torch.where(canvas > NEG, canvas, torch.zeros_like(canvas))
+    return torch.where(canvas > neg, canvas, torch.zeros_like(canvas))
+
+
+# kernel name (its launch count) and C entry per feature dtype
+_K2_DTYPES = {torch.float32: ("pillar_scatter_max", "pillar_scatter_max_f32"),
+              torch.bfloat16: ("pillar_scatter_max_bf16",
+                               "pillar_scatter_max_bf16")}
 
 
 def pillar_scatter_max(feat, pid, num_segments: int):
-    """Kernel `pillar_scatter_max` (contract of `pillar_scatter_max_plain`).
-    CPU tensors take the plain version."""
+    """Kernel `pillar_scatter_max` (contract of `pillar_scatter_max_plain`),
+    f32 or bf16 (C even).  CPU tensors take the plain version."""
     if feat.device.type == "cpu":
         return pillar_scatter_max_plain(feat, pid, num_segments)
     if feat.device.type != "cuda" or pid.device != feat.device:
         raise ValueError(f"pillar_scatter_max: feat on {feat.device}, pid on "
                          f"{pid.device}; both must be on one CUDA device")
-    if feat.dtype != torch.float32 or pid.dtype != torch.int32:
-        raise TypeError(f"pillar_scatter_max: feat {feat.dtype} (f32), pid "
-                        f"{pid.dtype} (int32)")
+    if feat.dtype not in _K2_DTYPES or pid.dtype != torch.int32:
+        raise TypeError(f"pillar_scatter_max: feat {feat.dtype} (f32/bf16), "
+                        f"pid {pid.dtype} (int32)")
     if feat.ndim != 2 or pid.shape != feat.shape[:1]:
         raise ValueError(f"pillar_scatter_max: feat {tuple(feat.shape)}, pid "
                          f"{tuple(pid.shape)}")
     if not (feat.is_contiguous() and pid.is_contiguous()):
         raise ValueError("pillar_scatter_max: inputs must be contiguous")
     N, C = feat.shape
+    if feat.dtype == torch.bfloat16 and (C % 2 or feat.data_ptr() % 4):
+        raise ValueError("pillar_scatter_max: bf16 rows must be channel "
+                         "pairs")
+    name, fn_name = _K2_DTYPES[feat.dtype]
     out = torch.empty((num_segments, C), dtype=feat.dtype, device=feat.device)
-    fn = _lib().pillar_scatter_max_f32
+    fn = getattr(_lib(), fn_name)
     with torch.cuda.device(feat.device):
         stream = torch.cuda.current_stream(feat.device).cuda_stream
         err = fn(feat.data_ptr(), pid.data_ptr(), out.data_ptr(), N, C,
                  num_segments, stream)
-    native.check(err, "pillar_scatter_max")
-    native.LAUNCHES["pillar_scatter_max"] += 1
+    native.check(err, name)
+    native.LAUNCHES[name] += 1
     return out
 
 
 def _lib():
     lib = native.load("pillar_scatter_max")
-    fn = lib.pillar_scatter_max_f32
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    for _, fn_name in _K2_DTYPES.values():
+        fn = getattr(lib, fn_name)
+        if fn.argtypes is None:
+            fn.argtypes = [ctypes.c_void_p] * 3 + [
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                ctypes.c_void_p]
+            fn.restype = ctypes.c_int
     return lib
 
 

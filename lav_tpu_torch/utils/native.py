@@ -8,7 +8,9 @@ source is newer.
 
 `LAUNCHES` counts, per kernel, the wrapper calls that launched it on the
 card; `reset_launches` sets every count to 0.  A source may hold several
-kernels (`pillar_scatter.cu` holds the zero-init max and the add).
+kernels (`pillar_scatter.cu` holds the zero-init max and the add), and a
+kernel's forms are counted apart where a path must show which one ran
+(`crop_shared_q8_s2d`, `pillar_scatter_max_bf16`).
 """
 
 from __future__ import annotations
@@ -28,11 +30,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 SOURCES = ("crop_shared", "pillar_scatter_max", "pillar_scatter",
-           "conv2d_int8")
-KERNELS = ("crop_shared", "crop_shared_q8",    # crop_shared.cu
-           "pillar_scatter_max",                 # pillar_scatter_max.cu
-           "scatter_max", "scatter_add",         # pillar_scatter.cu
-           "conv2d_int8")                        # conv2d_int8.cu
+           "conv2d_int8", "take_along_rows")
+KERNELS = (
+    "crop_shared", "crop_shared_q8", "crop_shared_q8_s2d",  # crop_shared.cu
+    "pillar_scatter_max", "pillar_scatter_max_bf16",  # pillar_scatter_max.cu
+    "scatter_max", "scatter_add",                     # pillar_scatter.cu
+    "conv2d_int8",                                    # conv2d_int8.cu
+    "take_along_rows",                                # take_along_rows.cu
+)
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _libs: dict = {}

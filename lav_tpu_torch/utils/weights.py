@@ -9,7 +9,9 @@ leaf layer converts its arrays to PyTorch's layout:
   Conv2d          w HWIO (kh, kw, i, o)  -> OIHW; or lav_tpu's int8 form
                   (nn/quant.py): w_int8 HWIO int8 -> OHWI, w_scale (o,),
                   x_scale () when calibrated, and the conv turns int8
-  ConvTranspose2d w HWIO of the flipped equivalent conv -> (i, o, kh, kw)
+  ConvTranspose2d w HWIO of the flipped equivalent conv -> (i, o, kh, kw);
+                  or int8 (`include=r"^upconv\\d$"`): w_int8 HWIO -> the
+                  flipped equivalent conv's OHWI, w_scale, x_scale
   BatchNorm       scale, bias, mean, var -> as they are
   GRU             w_ih (I, 3H), w_hh (H, 3H) -> (3H, I), (3H, H);
                   gate order (r, z, n) is torch's already
@@ -58,17 +60,23 @@ def _linear(m, d, path, filled):
         _set(m.b, d["b"], path + "/b", filled)
 
 
+def _int8_leaf(m, d, w_ohwi, path, filled):
+    """Switch conv `m` to int8 and fill it from lav_tpu's dict `d`, the
+    int8 weight already in the port's (O, KH, KW, I) layout."""
+    kh, kw = m.ksize
+    m.quantize_(torch.empty((m.cout, kh, kw, m.cin), dtype=torch.int8),
+                torch.empty((m.cout,)))
+    _set(m.w_int8, w_ohwi, path + "/w_int8", filled)
+    _set(m.w_scale, d["w_scale"], path + "/w_scale", filled)
+    if "x_scale" in d:
+        m.x_scale = torch.empty(())
+        _set(m.x_scale, d["x_scale"], path + "/x_scale", filled)
+
+
 def _conv(m, d, path, filled):
     if "w_int8" in d:
-        kh, kw = m.ksize
-        m.quantize_(torch.empty((m.cout, kh, kw, m.cin), dtype=torch.int8),
-                    torch.empty((m.cout,)))
-        _set(m.w_int8, np.asarray(d["w_int8"]).transpose(3, 0, 1, 2),
-             path + "/w_int8", filled)
-        _set(m.w_scale, d["w_scale"], path + "/w_scale", filled)
-        if "x_scale" in d:
-            m.x_scale = torch.empty(())
-            _set(m.x_scale, d["x_scale"], path + "/x_scale", filled)
+        _int8_leaf(m, d, np.asarray(d["w_int8"]).transpose(3, 0, 1, 2), path,
+                   filled)
     else:
         _set(m.w, np.asarray(d["w"]).transpose(3, 2, 0, 1), path + "/w",
              filled)
@@ -77,7 +85,12 @@ def _conv(m, d, path, filled):
 
 
 def _conv_transpose(m, d, path, filled):
-    _set(m.w, np.asarray(d["w"]).transpose(2, 3, 0, 1), path + "/w", filled)
+    if "w_int8" in d:   # lav_tpu flips at apply time; the port stores it so
+        w = np.flip(np.asarray(d["w_int8"]), (0, 1)).transpose(3, 0, 1, 2)
+        _int8_leaf(m, d, w, path, filled)
+    else:
+        _set(m.w, np.asarray(d["w"]).transpose(2, 3, 0, 1), path + "/w",
+             filled)
     if m.b is not None:
         _set(m.b, d["b"], path + "/b", filled)
 

@@ -20,6 +20,12 @@
   3e-2, the int8 golden's own: lav_tpu's CPU route crops in bf16 and
   quantizes afterwards, the port quantizes the f32 crop sum (one step
   apart on a few values), and bf16 rounds in other places;
+* bench.py's variant routes: the tiny production agent with int8 upconvs
+  (`LAV_INT8_UPCONV=1`) against lav_tpu's, 3 ticks at atol/rtol 3e-2; and
+  the port's tiny production agent with `use_pallas=True, s2d_crops=True`
+  equal to the same agent with both off, exactly (the bf16 NEG canvas
+  equals the zero canvas on post-ReLU features, and the s2d conv1 sums
+  the direct conv's int32 products);
 * EKF, PID and the control overrides against lav_tpu;
 * no file of lav_tpu_torch imports jax or lav_tpu, and the entry points
   raise when `cuda` is asked for on a machine without a card.
@@ -231,10 +237,11 @@ def test_v2_agent_full_width_matches_production_golden():
 PROD_TOL = dict(atol=3e-2, rtol=3e-2)
 
 
-def _mxu(params):
+def _mxu(params, include=None):
     """lav_tpu's "mxu" quantization (`__graft_entry__.py:67-76`)."""
     q = dict(params)
-    q["lidar_model"] = JQ.quantize_tree(params["lidar_model"])
+    q["lidar_model"] = JQ.quantize_tree(params["lidar_model"],
+                                        include=include)
     q["uniplanner"] = JQ.quantize_tree(params["uniplanner"])
     return q
 
@@ -251,13 +258,11 @@ def _compare_prod(tag, ticks):
                      aj["pred_bra"], **PROD_TOL)
 
 
-def test_tiny_agent_bf16_int8_matches_jax():
+def _calibrated_tiny(cfg, tcfg, include=None):
     """lav_tpu quantizes; the port calibrates (two f32 observer ticks, as
     its setup does; lav_tpu's eager calibration of the same ticks takes
-    ~50 s here) and lav_tpu's params take its scales; both then run the
-    same 3 ticks in bf16."""
-    cfg, tcfg = tiny_config(), t_tiny_config()
-    params = _mxu(_params(cfg))
+    ~50 s here) and lav_tpu's params take its scales."""
+    params = _mxu(_params(cfg), include)
     models = _models(tcfg, params, 1)
     init_t, step_t = build_agent(tcfg, rgb_hw=IMG_HW, device="cpu")
 
@@ -274,10 +279,79 @@ def test_tiny_agent_bf16_int8_matches_jax():
         for key in path.strip("/").split("/"):
             node = node[key]
         node["x_scale"] = jnp.float32(float(conv.x_scale))
+    return params, models
+
+
+def test_tiny_agent_bf16_int8_matches_jax():
+    """Both run the same 3 ticks in bf16 with the port's scales."""
+    cfg, tcfg = tiny_config(), t_tiny_config()
+    params, _ = _calibrated_tiny(cfg, tcfg)
     ticks = _run_both(cfg, tcfg, params, 1, 3,
                       lambda t, P: _obs(np.random.default_rng(t), P, t),
                       dtype=torch.bfloat16)
     _compare_prod("tiny_int8", ticks)
+
+
+def test_tiny_agent_int8_upconv_matches_jax():
+    """LAV_INT8_UPCONV=1: the lidar model's upconvs int8 as well (at nf = 8
+    upconv2 and upconv3; upconv1 has 8 input channels and stays float)."""
+    cfg, tcfg = tiny_config(), t_tiny_config()
+    params, models = _calibrated_tiny(cfg, tcfg, include=r"^upconv\d$")
+    ups = [p for p, _ in int8_convs(models) if "upconv" in p]
+    assert ups == ["/lidar_model/backbone/upconv2/conv",
+                   "/lidar_model/backbone/upconv3/conv"]
+    ticks = _run_both(cfg, tcfg, params, 1, 3,
+                      lambda t, P: _obs(np.random.default_rng(t), P, t),
+                      dtype=torch.bfloat16)
+    _compare_prod("tiny_int8_upconv", ticks)
+
+
+def test_tiny_agent_variant_knobs_change_nothing():
+    """use_pallas=True and s2d_crops=True (BENCH_PALLAS=1, LAV_S2D_CROPS=1)
+    on the port's tiny production agent: the same controls, plans, canvas
+    maps and state as with both off, exactly, over 3 ticks; the crops do
+    go space-to-depth."""
+    from lav_tpu_torch.nn import quant as TQ
+
+    tcfg = t_tiny_config()
+    models = AgentModels(tcfg, brake_version=1,
+                         gen=torch.Generator().manual_seed(5)).eval()
+    TQ.quantize_tree(models.lidar_model)
+    TQ.quantize_tree(models.uniplanner)
+    init_c, step_c = build_agent(tcfg, rgb_hw=IMG_HW, device="cpu")
+
+    def calib():
+        state = init_c()
+        for t in range(2):
+            P = state.prev_lidar.shape[1]
+            _, state, _ = step_c(models, state, _t_obs(
+                [_obs(np.random.default_rng(70 + t), P, t)]))
+
+    calibrate(calib)
+    runs = []
+    for knobs in (dict(), dict(use_pallas=True, s2d_crops=True)):
+        init_t, step_t = build_agent(tcfg, rgb_hw=IMG_HW, device="cpu",
+                                     compute_dtype=torch.bfloat16, **knobs)
+        calls = []
+        s2d = TQ.conv2d_int8_s2d
+        TQ.conv2d_int8_s2d = lambda *a, **k: calls.append(1) or s2d(*a, **k)
+        try:
+            state, out = init_t(), []
+            for t in range(3):
+                P = state.prev_lidar.shape[1]
+                ctrl, state, aux = step_t(models, state, _t_obs(
+                    [_obs(np.random.default_rng(t), P, t)]))
+                out.append((ctrl, state, aux))
+        finally:
+            TQ.conv2d_int8_s2d = s2d
+        assert len(calls) == (3 if knobs else 0)
+        runs.append(out)
+    for (c0, s0, a0), (c1, s1, a1) in zip(*runs):
+        for x, y in zip(c0, c1):
+            assert torch.equal(x, y)
+        for k in ("plan_locs", "bev", "other_cast_locs", "pred_bra"):
+            assert torch.equal(a0[k], a1[k]), k
+        assert torch.equal(s0.ekf.x, s1.ekf.x)
 
 
 def test_v2_agent_int8_mxu_matches_production_golden(tmp_path, monkeypatch):

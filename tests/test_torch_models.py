@@ -10,7 +10,10 @@ The production configuration (bf16 compute, int8 "mxu" convs with static
 scales from lav_tpu's calibration) is held to atol/rtol 3e-2, the int8
 golden's tolerance (tests/test_golden_production.py): bf16 roundings in
 another order move an activation by an ulp, and an int8 quantize may then
-land one step apart.  The camera nets in bf16 take the same tolerance.
+land one step apart.  The camera nets in bf16 take the same tolerance, as
+do bench.py's variant routes: the planner with space-to-depth crops
+(lav_tpu's `LAV_S2D_CROPS=1`, here `s2d_crops=True`) and the lidar model
+with int8 upconvs (`LAV_INT8_UPCONV=1`, `quantize_tree(include=...)`).
 """
 
 import os
@@ -291,3 +294,81 @@ def test_camera_models_bf16_match_jax(rng):
     assert out_b.dtype == torch.float32 and ref_b.dtype == jnp.float32
     assert_close("models.brake_model_v2_bf16", out_b, np.asarray(ref_b),
                  **PROD_TOL)
+
+
+def test_int8_uniplanner_infer_s2d_crops_matches_jax(monkeypatch):
+    """s2d_crops=True against lav_tpu with LAV_S2D_CROPS=1 and its folded
+    crop route, whose CPU fallback crops in bf16, quantizes, reshuffles
+    space-to-depth (core/warp.py:335-345) and runs conv2d_int8_s2d."""
+    from lav_tpu_torch.nn import quant as TQ
+
+    params = JQ.quantize_tree(JPl.uniplanner_init(jax.random.key(19), CFG))
+    r = np.random.default_rng(19)
+    Hf = CFG.ny // 2
+    feats = r.normal(size=(Hf, Hf, CFG.uniplanner_input_channels)
+                     ).astype(np.float32)
+    det = {k: jnp.asarray(v) for k, v in _det(r, CFG.max_det, CFG.ny,
+                                               CFG.nx).items()}
+    nxp, cmd = jnp.float32([4.0, 1.5]), jnp.asarray(2)
+    JQ.calibrate(lambda: JPl.uniplanner_infer(
+        params, CFG, jnp.asarray(feats), det, cmd, nxp))
+    monkeypatch.setenv("LAV_S2D_CROPS", "1")
+    s2d_calls = []
+    plain_s2d = JQ.conv2d_int8_s2d
+    monkeypatch.setattr(JQ, "conv2d_int8_s2d",
+                        lambda *a, **k: s2d_calls.append(1)
+                        or plain_s2d(*a, **k))
+    ref = JPl.uniplanner_infer(params, CFG, _bf16(feats), det, cmd, nxp,
+                               use_pallas_crop=True)
+    assert s2d_calls, "lav_tpu did not take its s2d route"
+    core = _load(UniPlanner(TCFG), params)
+    port_calls = []
+    port_s2d = TQ.conv2d_int8_s2d
+    monkeypatch.setattr(TQ, "conv2d_int8_s2d",
+                        lambda *a, **k: port_calls.append(1)
+                        or port_s2d(*a, **k))
+    with torch.no_grad():
+        out = uniplanner_infer(
+            core, TCFG, _t(feats).bfloat16()[None],
+            {k: torch.from_numpy(np.array(v))[None] for k, v in det.items()},
+            torch.tensor([2]), _t(np.asarray(nxp))[None], s2d_crops=True)
+    assert port_calls == [1]
+    names = ("ego_plan_locs", "ego_cast_cmd_locs", "other_cast_locs",
+             "other_cast_cmds")
+    for name, o, rf in zip(names, out[:4], ref[:4]):
+        assert o.dtype == torch.float32
+        assert_close(f"models.uniplanner_infer_s2d.{name}", o[0],
+                     np.asarray(rf), **PROD_TOL)
+
+
+def test_int8_lidar_model_upconv_matches_jax():
+    """quantize_tree(include=r"^upconv\\d$") on both sides: at nf = 8
+    upconv1 (cin 8) stays float under min_channels=16, upconv2/3 (cin 16)
+    run int8; lav_tpu's calibrated scales are loaded into the port."""
+    include = r"^upconv\d$"
+    params = JQ.quantize_tree(JLid.lidar_model_init(
+        jax.random.key(20), CFG.num_input, CFG.num_features),
+        include=include)
+    ups = params["backbone"]
+    assert "w" in ups["upconv1"]["conv"]
+    assert all("w_int8" in ups[f"upconv{i}"]["conv"] for i in (2, 3))
+    r = np.random.default_rng(20)
+    pts = r.uniform(-5, 10, (2, 128, CFG.num_input - 5)).astype(np.float32)
+    valid = r.uniform(size=(2, 128)) > 0.1
+    kw = dict(train=False, num_features=CFG.num_features, **_geo(CFG))
+    JQ.calibrate(lambda: JLid.lidar_model_apply(
+        params, jnp.asarray(pts), jnp.asarray(valid), **kw))
+    ref = jax.jit(lambda p, x, v: JLid.lidar_model_apply(p, x, v, **kw))(
+        params, _bf16(pts), jnp.asarray(valid))
+    model = _load(LidarModel(TCFG.num_input, TCFG.num_features,
+                             **_geo(TCFG)), params)
+    bb = model.backbone
+    assert bb.upconv1.conv.w_int8 is None
+    assert all(getattr(bb, f"upconv{i}").conv.x_scale is not None
+               for i in (2, 3))
+    with torch.no_grad():
+        out = model(_t(pts).bfloat16(), _t(valid))
+    names = ("features", "heatmap", "sizemap", "orimap", "bev_seg")
+    for name, o, rf in zip(names, out, ref[:5]):
+        assert_close(f"models.lidar_int8_upconv.{name}", o,
+                     np.asarray(rf.astype(jnp.float32)), **PROD_TOL)

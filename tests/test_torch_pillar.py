@@ -1,8 +1,9 @@
 """lav_tpu_torch.ops.pillar against lav_tpu.ops.pillar on the CPU.
 
 The plain version of kernel `pillar_scatter_max` against the Pallas
-kernel `pillar_scatter_max_pallas(..., interpret=True)`: exact, since max
-does not depend on order.  The port's featurizer, on both of its routes
+kernel `pillar_scatter_max_pallas(..., interpret=True)`, in f32 and in
+bf16 (NEG rounded to bf16, compared in bf16 as the Pallas kernel does):
+exact, since max does not depend on order.  The port's featurizer, on both of its routes
 (the production default and `use_pallas=True`), against JAX
 `point_pillar_apply(use_pallas=False)`, the form that runs on the CPU;
 all give the zero canvas with per-pillar maxima, JAX's emitted 128 lanes
@@ -60,6 +61,31 @@ def test_scatter_max_matches_pallas_interpret(seed, n, C, G, invalid, neg):
         assert (out.numpy() < 0).any()
 
 
+@pytest.mark.parametrize("seed,n,C,G,invalid,neg", [
+    (0, 512, 64, 200, 0.2, False),
+    (1, 300, 32, 97, 0.5, True),     # negative maxima must survive
+    (2, 100, 32, 64, 1.0, False),    # every point masked: all zeros
+    (3, 1000, 8, 50, 0.0, False),    # many duplicates per pillar
+])
+def test_scatter_max_bf16_matches_pallas_interpret(seed, n, C, G, invalid,
+                                                   neg):
+    """bf16 (lav_tpu's BENCH_PALLAS=1 under bf16): exact, the untouched
+    and the masked-only pillars 0."""
+    feat, pid = _scatter_case(seed, n, C, G, invalid, neg)
+    fb = jnp.asarray(feat, jnp.bfloat16)
+    ref = pillar_scatter_max_pallas(fb, jnp.asarray(pid), num_segments=G,
+                                    slab=128, interpret=True)
+    assert ref.dtype == jnp.bfloat16
+    tf = torch.from_numpy(np.array(fb.astype(jnp.float32))).bfloat16()
+    out = P.pillar_scatter_max(tf, torch.from_numpy(pid), G)
+    assert out.dtype == torch.bfloat16
+    assert_close("pillar.scatter_max_bf16", out,
+                 np.asarray(ref.astype(jnp.float32)), atol=0.0)
+    assert float(out[G - 1].abs().max()) == 0.0 or not invalid
+    if neg:
+        assert (out.float().numpy() < 0).any()
+
+
 def test_scatter_max_wrapper_routes_by_device():
     feat, pid = _scatter_case(4, 64, 16, 40, 0.3)
     f, p = torch.from_numpy(feat), torch.from_numpy(pid)
@@ -67,6 +93,8 @@ def test_scatter_max_wrapper_routes_by_device():
                        P.pillar_scatter_max_plain(f, p, 40))
     with pytest.raises(ValueError):
         P.pillar_scatter_max(f.to("meta"), p.to("meta"), 40)
+    with pytest.raises(ValueError):       # the bf16 form too
+        P.pillar_scatter_max(f.bfloat16().to("meta"), p.to("meta"), 40)
 
 
 def _geo(cfg):
@@ -173,6 +201,20 @@ def test_point_pillar_production_bf16_matches_jax(cfg_name, B, n):
     `scatter_max`).  Equal here; the f32 sums run in another order than
     lav_tpu's sorted blocks, so on other data a mean could round one bf16
     ulp apart."""
+    _check_bf16(cfg_name, B, n, use_pallas=False)
+
+
+@pytest.mark.parametrize("cfg_name,B,n", [("tiny", 2, 128), ("v2", 1, 512)])
+def test_point_pillar_use_pallas_bf16_matches_jax(cfg_name, B, n):
+    """The port's use_pallas=True route in bf16 (lav_tpu's BENCH_PALLAS=1:
+    per-item dump slots, masked points at the bf16 NEG, kernel
+    `pillar_scatter_max` in bf16) against lav_tpu's bf16 production route,
+    the form of lav_tpu that runs on the CPU: post-ReLU features make the
+    two canvases equal, exactly."""
+    _check_bf16(cfg_name, B, n, use_pallas=True)
+
+
+def _check_bf16(cfg_name, B, n, use_pallas):
     cfg = tiny_config() if cfg_name == "tiny" else v2_config()
     params = JP.point_pillar_init(jax.random.key(5), cfg.num_input,
                                   cfg.num_features)
@@ -194,7 +236,7 @@ def test_point_pillar_production_bf16_matches_jax(cfg_name, B, n):
     load_jax_params(model, jax.tree.map(np.asarray, params))
     with torch.no_grad():
         out = model(torch.from_numpy(pts).bfloat16(),
-                    torch.from_numpy(valid))
+                    torch.from_numpy(valid), use_pallas=use_pallas)
     C = cfg.num_features[-1]
     ref = np.asarray(ref.astype(jnp.float32))
     assert out.dtype == torch.bfloat16 and out.shape == (B, cfg.ny, cfg.nx, C)

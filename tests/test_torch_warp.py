@@ -18,7 +18,13 @@ The q8 form (int8 crops, kernel `crop_shared_q8`) against the Pallas q8
 kernel in interpret mode on lav_tpu's grid, bf16 source: both quantize the
 f32 bilinear sum, which the two sum in another order, so a value on a
 rounding boundary may land one step apart: at most 1 step, on at most 1%
-of the values.  The CUDA kernels themselves run only on the card
+of the values.  The space-to-depth q8 crops (kernel `crop_shared_q8_s2d`,
+lav_tpu's `LAV_S2D_CROPS=1`) through `crop_feature_shared` against
+lav_tpu's `crop_feature_shared(..., q8_s2d=True)`, on its Pallas route in
+interpret mode (bf16 source; the kernel's own s2d emit) and on its XLA
+route (f32 source: that route quantizes the crop after casting it to the
+source dtype, which in bf16 would move ~0.25 step), at the same
+tolerance.  The CUDA kernels themselves run only on the card
 (chip_smoke.py).
 """
 
@@ -32,7 +38,7 @@ from lav_tpu.core.warp import (
     grid_sample_shared as j_grid_sample_shared,
 )
 from lav_tpu.core.warp_pallas import (
-    grid_sample_shared_pallas, grid_sample_shared_pallas_q8,
+    grid_sample_shared_pallas, grid_sample_shared_pallas_q8, s2d_eligible,
 )
 from lav_tpu_torch.core import warp
 from tests.torch_parity import assert_close
@@ -189,3 +195,71 @@ def test_q8_crop_matches_pallas_q8_kernel(case):
     assert np.abs(ref).max() > 64          # the int8 range is used
     if far:
         assert int(out[0, -1].abs().max()) == 0
+
+
+S2D_CASES = [
+    # (seed, K, H, C, crop, ppm, scale, offset_y, edge, far)
+    CASES[2],
+    (12, 3, 64, 32, 32, 2.0, 4.0, 0.75, True, True),
+]
+
+
+@pytest.mark.parametrize("route", ["pallas", "xla"])
+@pytest.mark.parametrize("case", S2D_CASES)
+def test_s2d_q8_crops_match_lav_tpu(case, route):
+    seed, K, H, C, crop, ppm, scale, off_y, edge, far = case
+    feats, locs, oris = _crop_inputs(seed, K, H, C, scale, edge, far, ppm)
+    dtype = jnp.bfloat16 if route == "pallas" else jnp.float32
+    src = jnp.asarray(feats, dtype)
+    x_scale = np.float32(float(jnp.abs(src.astype(jnp.float32)).max())
+                         / 127.0)
+    kw = dict(pixels_per_meter=ppm, crop_size=crop, offset_y=off_y)
+    if route == "pallas":   # lav_tpu's kernel emits the s2d layout itself
+        assert s2d_eligible(feats.shape, (crop, crop), 2)
+    ref = np.asarray(j_crop(src, jnp.asarray(locs), jnp.asarray(oris),
+                            use_pallas=route == "pallas",
+                            pallas_interpret=True, q8_x_scale=x_scale,
+                            q8_s2d=True, **kw))
+    tsrc = torch.from_numpy(np.array(src.astype(jnp.float32)))
+    if route == "pallas":
+        tsrc = tsrc.bfloat16()
+    out = warp.crop_feature_shared(tsrc, torch.from_numpy(locs),
+                                   torch.from_numpy(oris),
+                                   q8_x_scale=torch.tensor(x_scale), s2d=True,
+                                   **kw)
+    assert out.dtype == torch.int8 and ref.dtype == np.int8
+    assert out.shape == ref.shape == (K, crop // 2, crop // 2, 4 * C)
+    diff = np.abs(out.numpy().astype(np.int32) - ref.astype(np.int32))
+    assert diff.max() <= 1 and (diff > 0).mean() <= 0.01, (
+        diff.max(), (diff > 0).mean())
+    assert_close("warp.crop_shared_q8_s2d", out, ref, atol=1.0)
+    assert np.abs(ref).max() > 64
+    # the same crops as the q8 form, reshuffled
+    q8 = warp.crop_feature_shared(tsrc, torch.from_numpy(locs),
+                                  torch.from_numpy(oris),
+                                  q8_x_scale=torch.tensor(x_scale), **kw)
+    assert torch.equal(out, warp.space_to_depth(q8[None])[0])
+    if far:
+        assert int(out[-1].abs().max()) == 0
+
+
+def test_s2d_wrapper_routes_and_refuses():
+    """s2d needs q8 and an even crop; a meta tensor is refused."""
+    feats, locs, oris = _crop_inputs(13, 2, 32, 8, 3.0)
+    theta = warp.crop_theta(torch.from_numpy(locs), torch.from_numpy(oris),
+                            32, 32, 2.0, 16, 0.0, 0.75)
+    grid = warp.affine_grid(theta, 16, 16)[None].contiguous()
+    src = torch.from_numpy(feats)[None]
+    s = torch.tensor(0.05)
+    out = warp.crop_shared(src, grid, q8_x_scale=s, s2d=True)
+    assert out.shape == (1, 2, 8, 8, 32)
+    assert torch.equal(out, warp.space_to_depth(
+        warp.grid_sample_shared_q8(src, grid, warp.inverse_scale(s))))
+    with pytest.raises(ValueError):
+        warp.crop_shared(src, grid, s2d=True)              # not q8
+    with pytest.raises(ValueError):
+        warp.crop_shared(src, grid[:, :, :15, :15].contiguous(),
+                         q8_x_scale=s, s2d=True)           # odd crop
+    with pytest.raises(ValueError):
+        warp.crop_shared(src.to("meta"), grid.to("meta"),
+                         q8_x_scale=s.to("meta"), s2d=True)
