@@ -23,7 +23,11 @@ Phases, each printing its own line and raising on failure:
   scatter kernels scatter_max (bf16 and f32, exact) and scatter_add (f32)
           against their plain versions at the production shapes (16 x
           60000 points into 16 x 102400 + 1 rows) with duplicate ids,
-          empty pillars and dump-row points
+          empty pillars and dump-row points; scatter_add also on a
+          contention case (runs of 16 equal ids) and on the ids and
+          payloads the production agent hands it at tick 1 and once its
+          ring buffer is full; host-paced and device-only times beside
+          index_add_'s
   conv_int8  kernel conv2d_int8 against its plain version at every int8
           conv shape of the production tick (16 egos), and at the variant
           routes' shapes (the s2d conv1 and the three int8 upconvs as
@@ -31,7 +35,11 @@ Phases, each printing its own line and raising on failure:
           without; must be exact; cuDNN's bf16 conv (F.conv_transpose2d for
           the upconvs) at the same shape is timed beside it
   gather  kernel take_along_rows (the gather probe, scripts/exp_gather.py)
-          at the probe's six (S, L, dtype) cases; must be exact
+          at the probe's six (S, L, dtype) cases; must be exact, and give
+          0 for an index outside [0, S); host-paced and device-only times
+          and host us per call beside torch.gather's, the device-only
+          time with the rows in order, and what the pieces of a launch
+          cost the host
   agent   the full-width v2 agent (3 cameras 288x256, telephoto 192x480,
           8192 points per sweep) in f32 on the use_pallas route for 4
           egos and 3 ticks on the card: its kernels launched, controls
@@ -102,7 +110,9 @@ def log(phase: str, msg: str) -> None:
 
 
 def cuda_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
-    """Mean device time of fn() in ms, from CUDA events around `iters` runs."""
+    """Mean time of fn() in ms, from CUDA events around `iters` runs back to
+    back: the host-paced time, which is the host's cost per call where
+    that exceeds the device's work."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -114,6 +124,63 @@ def cuda_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters: int = 20, warmup: int = 2) -> float:
+    """Mean device-only time of fn() in ms: the summed durations of the
+    kernels and fills it runs, from torch.profiler, over `iters` runs;
+    the host's time between launches is left out.  The profiler now and
+    then records no device activity for a whole run; after three such
+    runs the time is taken with CUDA events around single calls, each
+    after a synchronize (the median), and the log says so."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA)
+        if total > 0:
+            return total / iters / 1e3
+    log("timing", "the profiler saw no device time in three runs: CUDA "
+        "events around single calls instead")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def host_us(torch, fn, n: int = 200) -> float:
+    """Host cost of one fn() call in us: the best of three loops of n calls
+    on the host clock, with no synchronize inside a loop, less the same
+    loop of an empty call."""
+    def loop(f):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            f()
+        t = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return t
+
+    fn()
+    spent = min(loop(fn) for _ in range(3))
+    empty = min(loop(lambda: None) for _ in range(3))
+    return (spent - empty) / n * 1e6
 
 
 def bound_ms(nbytes: float, flops: float = 0.0, peak: float = F32_FLOPS):
@@ -420,7 +487,14 @@ def phase_scatter(ctx):
     invalid = torch.rand((E, P), generator=g) < 0.2        # empty pillars
     pid = torch.where(invalid, torch.full_like(local, E * G),
                       local + torch.arange(E)[:, None] * G).reshape(-1)
+    # a contention case, no recorded traffic: 30% of the valid points
+    # come in runs of 16 equal ids onto 64 pillars per ego
+    run = torch.arange(E * P).reshape(E, P) // 16
+    hot = (run % 10 < 3) & ~invalid
+    runs_pid = torch.where(hot, (run % 64) * 97 + torch.arange(E)[:, None] * G,
+                           pid.reshape(E, P)).reshape(-1)
     pid = pid.to(torch.int32).to(dev)
+    runs_pid = runs_pid.to(torch.int32).to(dev)
     res = {}
     # max: post-ReLU payloads (zeros and ties included)
     for dtype, C in ((torch.bfloat16, 64), (torch.float32, 64)):
@@ -457,6 +531,25 @@ def phase_scatter(ctx):
     keep = ~invalid.reshape(-1, 1)
     feat = torch.cat([torch.where(keep, xyz, 0.0), keep.float()],
                      dim=-1).to(dev)
+    res["add"] = _scatter_add_case(torch, ctx, "phase ids", feat, pid, S,
+                                   plain=True)
+    res["add"]["runs_of_16"] = _scatter_add_case(torch, ctx, "runs of 16",
+                                                 feat, runs_pid, S)
+    del feat, pid, runs_pid, xyz
+    # the ids and payloads the agent itself hands the kernel
+    res["add"]["real_ids"] = {
+        label: _scatter_add_case(torch, ctx, f"agent {label}", *args)
+        for label, args in _agent_add_inputs(torch, ctx).items()}
+    ctx["scatter"] = res
+
+
+def _scatter_add_case(torch, ctx, label, feat, pid, S, plain=False):
+    """scatter_add on (feat, pid, S) against its plain version, within the
+    stated tolerance with the count lane exact; then timed host-paced and
+    device-only beside index_add_ on the same ids, and its host cost per
+    call."""
+    from lav_tpu_torch.ops.pillar import scatter_add, scatter_add_plain
+
     out = scatter_add(feat, pid, S)
     ref = scatter_add_plain(feat, pid, S)
     mag = scatter_add_plain(feat.abs(), pid, S)
@@ -470,25 +563,82 @@ def phase_scatter(ctx):
     rel = (diff / mag[:, :3].clamp(min=1e-30)).max().item()
     err = (out - ref).abs().max().item()
     count_ok = torch.equal(out[:, 3], ref[:, 3])
-    log("scatter", f"add f32: max_abs_err {err:.3e}, max |diff| / sum|v| "
-        f"{rel:.3e}, worst excess over rtol {rtol:.2e} x sum|v| "
-        f"{excess.item():.3e} (must be <= 0), count lane exact {count_ok}, "
-        f"most points in a pillar {n_max}")
+    in_range = (pid >= 0) & (pid < S)
+    zero = (feat == 0).all(dim=1)
+    log("scatter", f"add f32 {label}: {pid.numel()} points, "
+        f"{zero.float().mean().item():.3f} with an all-zero payload, "
+        f"{(in_range & ~zero).sum().item()} to add; max_abs_err {err:.3e}, "
+        f"max |diff| / sum|v| {rel:.3e}, worst excess over rtol {rtol:.2e} "
+        f"x sum|v| {excess.item():.3e} (must be <= 0), count lane exact "
+        f"{count_ok}, most points in a pillar (dump row included) {n_max}")
     if excess.item() > 0 or not count_ok:
-        raise AssertionError("scatter_add disagrees with plain")
-    ms = cuda_ms(torch, lambda: scatter_add(feat, pid, S))
-    plain_ms = cuda_ms(torch, lambda: scatter_add_plain(feat, pid, S))
-    acc = torch.zeros((S, 4), device=dev)
+        raise AssertionError(f"scatter_add ({label}) disagrees with plain")
+    del out, ref, mag, diff
+    ms = cuda_ms(torch, lambda: scatter_add(feat, pid, S), iters=20)
+    dev_ms = device_ms(torch, lambda: scatter_add(feat, pid, S))
+    us = host_us(torch, lambda: scatter_add(feat, pid, S))
+    plain_ms = (cuda_ms(torch, lambda: scatter_add_plain(feat, pid, S))
+                if plain else None)
+    acc = torch.zeros((S, 4), device=feat.device)
     idx = pid.long()
-    lib_ms = cuda_ms(torch, lambda: acc.index_add_(0, idx, feat))
+    lib_ms = cuda_ms(torch, lambda: acc.index_add_(0, idx, feat), iters=20)
+    lib_dev_ms = device_ms(torch, lambda: acc.index_add_(0, idx, feat))
+    lib_us = host_us(torch, lambda: acc.index_add_(0, idx, feat))
     nbytes = feat.numel() * 4 + pid.numel() * 4 + S * 4 * 4
     bms, by = bound_ms(nbytes, feat.numel())
-    res["add"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                      library_ms=lib_ms, bound_ms=bms, bound_by=by)
-    log("scatter", f"add f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"index_add_ {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}, "
-        f"{nbytes / 1e6:.1f} MB) on {ctx.get('smi', '?')}")
-    ctx["scatter"] = res
+    log("scatter", f"add f32 {label}: kernel {ms:.4f} ms host-paced, "
+        f"{dev_ms:.4f} ms device-only, {us:.1f} us host per call; "
+        f"index_add_ {lib_ms:.4f} / {lib_dev_ms:.4f} ms, {lib_us:.1f} us; "
+        f"plain {plain_ms} ms; bound {bms:.4f} ms ({by}, "
+        f"{nbytes / 1e6:.1f} MB): device-only {dev_ms / bms:.2f}x the bound, "
+        f"{dev_ms / lib_dev_ms:.2f}x index_add_ on {ctx.get('smi', '?')}")
+    del acc, idx
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bms, bound_by=by, device_ms=dev_ms, host_us=us,
+                library_device_ms=lib_dev_ms, library_host_us=lib_us)
+
+
+def _agent_add_inputs(torch, ctx):
+    """The (feat, pid, S) that segment_mean_gather hands kernel
+    scatter_add in bench.py's production tick (16 egos, 10000 points per
+    sweep), taken by wrapping the wrapper: at tick 1, before the first
+    sweep enters the ring buffer (every point goes to the dump row with a
+    zero payload), and at the first tick whose ring buffer holds more than
+    10 sweeps, where all three stacked sweeps are filled."""
+    from lav_tpu_torch.agent.setup import v2_agent_setup
+    from lav_tpu_torch.ops import pillar
+
+    step, models, state, obs, _ = v2_agent_setup(
+        max_points=MAX_POINTS_PROD, num_ego=NUM_EGO_PROD,
+        device=ctx["device"], seed=0, quant="mxu",
+        compute_dtype=torch.bfloat16)
+    real, seen, taken = pillar.scatter_add, [], {}
+
+    def spy(feat, pid, num_segments):
+        seen.append((feat.clone(), pid.clone(), num_segments))
+        return real(feat, pid, num_segments)
+
+    pillar.scatter_add = spy
+    try:
+        for t in range(1, 16):
+            seen.clear()
+            _, state, _ = step(models, state, obs)
+            if len(seen) != 1:
+                raise AssertionError(f"tick {t}: scatter_add ran "
+                                     f"{len(seen)} times")
+            full = int(state.buf_count.min()) > 10
+            if t == 1 or full:
+                taken[f"tick {t}"] = seen[0]
+            if full:
+                break
+    finally:
+        pillar.scatter_add = real
+    if len(taken) != 2:
+        raise AssertionError(f"the ring buffer never filled: {list(taken)}")
+    del step, models, state, obs
+    torch.cuda.empty_cache()
+    return taken
 
 
 def _conv_int8_shapes():
@@ -734,33 +884,129 @@ def phase_gather(ctx):
     if launches != len(cases):
         raise AssertionError(f"take_along_rows launched {launches} times for "
                              f"{len(cases)} cases")
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    keys = ("ms", "device_ms", "host_us", "plain_ms", "library_ms",
+            "library_device_ms", "library_host_us", "bound_ms")
+    tot = dict.fromkeys(keys, 0.0)
+    per_case = []
     for (S, L, dt, x, idx), out in zip(cases, outs):
         ref = take_along_rows_plain(x, idx)
         if not torch.equal(out, ref):
             raise AssertionError(f"take_along_rows ({S}, {L}) {dt} disagrees "
                                  "with plain")
-        ms = cuda_ms(torch, lambda: take_along_rows(x, idx), iters=20)
-        plain_ms = cuda_ms(torch, lambda: take_along_rows_plain(x, idx),
-                           iters=20)
         idx64 = idx.long()
-        lib_ms = cuda_ms(torch, lambda: torch.gather(x, 0, idx64), iters=20)
+        r = dict(
+            ms=cuda_ms(torch, lambda: take_along_rows(x, idx), iters=20),
+            device_ms=device_ms(torch, lambda: take_along_rows(x, idx)),
+            host_us=host_us(torch, lambda: take_along_rows(x, idx)),
+            plain_ms=cuda_ms(torch, lambda: take_along_rows_plain(x, idx),
+                             iters=20),
+            library_ms=cuda_ms(torch, lambda: torch.gather(x, 0, idx64),
+                               iters=20),
+            library_device_ms=device_ms(torch,
+                                        lambda: torch.gather(x, 0, idx64)),
+            library_host_us=host_us(torch, lambda: torch.gather(x, 0, idx64)))
         # idx read and out written once; of x only the distinct (row,
         # column) pairs this idx names
         hit = torch.unique(idx64 * L + torch.arange(L, device=dev)).numel()
         nbytes = idx.numel() * 4 + (out.numel() + hit) * x.element_size()
-        bms, by = bound_ms(nbytes)
-        log("gather", f"({S}, {L}) {dt}: exact, kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, torch.gather {lib_ms:.4f} ms, bound "
-            f"{bms:.5f} ms ({by}, {nbytes / 1e6:.2f} MB) on "
-            f"{ctx.get('smi', '?')}")
-        for key, val in (("ms", ms), ("plain_ms", plain_ms),
-                         ("library_ms", lib_ms), ("bound_ms", bms)):
-            tot[key] += val
-    ctx["gather"] = dict(max_abs_err=0.0, bound_by="bytes", **tot)
-    log("gather", f"six cases together: kernel {tot['ms']:.4f} ms, plain "
-        f"{tot['plain_ms']:.4f} ms, torch.gather {tot['library_ms']:.4f} ms, "
+        r["bound_ms"], by = bound_ms(nbytes)
+        # the same kernel with the rows in order (idx[i, l] = i): the bytes
+        # of a full x, but each warp's 32 reads of x fall on one sector run
+        rows = torch.arange(S, dtype=torch.int32, device=dev)[:, None]
+        rows = rows.expand(S, L).contiguous()
+        if not torch.equal(take_along_rows(x, rows), x):
+            raise AssertionError(f"take_along_rows ({S}, {L}) {dt}: rows in "
+                                 "order do not give x")
+        r["ordered_device_ms"] = device_ms(torch,
+                                           lambda: take_along_rows(x, rows))
+        r["ordered_bound_ms"] = bound_ms(
+            rows.numel() * 4 + 2 * x.numel() * x.element_size())[0]
+        log("gather", f"({S}, {L}) {dt}: exact; kernel {r['ms']:.4f} ms "
+            f"host-paced, {r['device_ms']:.4f} ms device-only "
+            f"({r['device_ms'] / r['bound_ms']:.2f}x the bound), "
+            f"{r['host_us']:.1f} us host per call; torch.gather "
+            f"{r['library_ms']:.4f} / {r['library_device_ms']:.4f} ms, "
+            f"{r['library_host_us']:.1f} us; plain {r['plain_ms']:.4f} ms; "
+            f"bound {r['bound_ms']:.5f} ms ({by}, {nbytes / 1e6:.2f} MB); "
+            f"rows in order {r['ordered_device_ms']:.4f} ms device-only "
+            f"({r['ordered_device_ms'] / r['ordered_bound_ms']:.2f}x its "
+            f"bound {r['ordered_bound_ms']:.5f} ms) on {ctx.get('smi', '?')}")
+        per_case.append(dict(S=S, L=L, dtype=dt, **r))
+        for key in keys:
+            tot[key] += r[key]
+    for key in ("host_us", "library_host_us"):
+        tot[key] /= len(cases)
+    # the card's contract past the plain version's: an index outside
+    # [0, S) gives 0, on the first case of each dtype
+    for S, L, dt, x, idx in {c[2]: c for c in reversed(cases)}.values():
+        bad = idx.clone()
+        bad[::7, ::5] = -1
+        bad[1::7, 2::5] = S
+        inside = (bad >= 0) & (bad < S)
+        want = torch.where(inside, take_along_rows_plain(
+            x, bad.clamp(0, S - 1)), torch.zeros((), dtype=x.dtype,
+                                                 device=dev))
+        if not torch.equal(take_along_rows(x, bad), want):
+            raise AssertionError(f"take_along_rows ({S}, {L}) {dt}: an "
+                                 "index outside [0, S) did not give 0")
+    log("gather", "indices outside [0, S) give 0 (f32 and bf16)")
+    ctx["gather"] = dict(max_abs_err=0.0, bound_by="bytes", **tot,
+                         cases=per_case)
+    log("gather", f"six cases together: kernel {tot['ms']:.4f} ms "
+        f"host-paced, {tot['device_ms']:.4f} ms device-only, "
+        f"{tot['host_us']:.1f} us host per call (mean); torch.gather "
+        f"{tot['library_ms']:.4f} / {tot['library_device_ms']:.4f} ms, "
+        f"{tot['library_host_us']:.1f} us; plain {tot['plain_ms']:.4f} ms; "
         f"bound {tot['bound_ms']:.5f} ms")
+    _host_costs(torch, ctx, cases[0][3])
+
+
+def _host_costs(torch, ctx, x):
+    """What the pieces of a launch cost the host, in us per call, on a CUDA
+    tensor x: the ways to read the current stream and device, the output
+    allocation, and the device guard."""
+    from lav_tpu_torch.utils import native
+
+    d = x.device
+    i = x.get_device()
+    import ctypes
+
+    entry = native.ENTRIES["take_along_rows_b32"]
+    # the same entry through ctypes.PyDLL, which keeps the GIL held
+    held = getattr(ctypes.PyDLL(str(native._lib_path(entry.source))),
+                   entry.symbol)
+    held.argtypes, held.restype = entry.fn.argtypes, entry.fn.restype
+    pieces = {
+        # M = 0: the entry returns before any CUDA call; nothing is counted
+        "ctypes call of an entry, CDLL (GIL released; 7 arguments, "
+        "returns at once)": lambda: entry.fn(0, 0, 0, 8, 0, 128, 0),
+        "the same through PyDLL (GIL held)":
+            lambda: held(0, 0, 0, 8, 0, 128, 0),
+        "torch.cuda.current_stream().cuda_stream":
+            lambda: torch.cuda.current_stream().cuda_stream,
+        "torch.cuda.current_stream(index).cuda_stream":
+            lambda: torch.cuda.current_stream(i).cuda_stream,
+        "torch._C._cuda_getCurrentRawStream(index) (private)":
+            lambda: torch._C._cuda_getCurrentRawStream(i),
+        "torch.cuda.current_device()": torch.cuda.current_device,
+        "x.get_device()": x.get_device,
+        "x.device": lambda: x.device,
+        "with torch.cuda.device(device)": lambda: _enter(torch.cuda.device(d)),
+        "torch.empty(shape, dtype=, device=)":
+            lambda: torch.empty((64, 128), dtype=x.dtype, device=d),
+        "x.new_empty(shape)": lambda: x.new_empty((64, 128)),
+        "torch.empty_like(x)": lambda: torch.empty_like(x),
+        "x.data_ptr()": x.data_ptr,
+    }
+    ctx["host_costs_us"] = {k: host_us(torch, f, n=2000)
+                            for k, f in pieces.items()}
+    log("gather", "host us per call: " + "; ".join(
+        f"{k} {v:.2f}" for k, v in ctx["host_costs_us"].items()))
+
+
+def _enter(guard):
+    with guard:
+        pass
 
 
 def _check_controls(torch, outs):

@@ -28,8 +28,6 @@ plain version is `grid_sample_shared_q8` followed by `space_to_depth`.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from lav_tpu_torch.utils import native
@@ -160,7 +158,6 @@ def crop_shared(src, grid, q8_x_scale=None, s2d: bool = False):
         vec = 1
     name = ("crop_shared_q8_s2d" if s2d else
             "crop_shared_q8" if q8 else "crop_shared")
-    fn = getattr(_lib(), f"{name}_{_DTYPES[src.dtype]}")
     args = [src.data_ptr(), grid.data_ptr(), out.data_ptr()]
     if q8:
         if q8_x_scale.device != src.device:
@@ -168,26 +165,9 @@ def crop_shared(src, grid, q8_x_scale=None, s2d: bool = False):
                              f"{q8_x_scale.device}, src on {src.device}")
         inv_s = inverse_scale(q8_x_scale).reshape(1).contiguous()
         args.append(inv_s.data_ptr())
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream(src.device).cuda_stream
-        err = fn(*args, B, H, W, C, K, Ho, Wo, vec, stream)
-    native.check(err, name)
-    native.LAUNCHES[name] += 1
+    native.launch(native.ENTRIES[f"{name}_{_DTYPES[src.dtype]}"],
+                  src.get_device(), *args, B, H, W, C, K, Ho, Wo, vec)
     return out
-
-
-def _lib():
-    lib = native.load("crop_shared")
-    for name, nptr in (("crop_shared_f32", 3), ("crop_shared_bf16", 3),
-                       ("crop_shared_q8_f32", 4), ("crop_shared_q8_bf16", 4),
-                       ("crop_shared_q8_s2d_f32", 4),
-                       ("crop_shared_q8_s2d_bf16", 4)):
-        fn = getattr(lib, name)
-        if fn.argtypes is None:
-            fn.argtypes = ([ctypes.c_void_p] * nptr + [ctypes.c_int] * 8
-                           + [ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-    return lib
 
 
 def crop_feature_shared(features, rel_locs, rel_oris, *,

@@ -12,10 +12,20 @@
 // (M, L) int32, out (M, L) of x's type; an index outside [0, S) gives 0.
 // The copy moves bits, so the result is exact.
 //
-// Bound: bytes — idx read once, out written once, and at most M*L
-// elements of x read (each gathered element once).  Design: one thread per
-// output element, consecutive threads along l, so the idx load, the out
-// store and, for a row index shared across a warp, the x load coalesce.
+// Bound: bytes — idx read once, out written once, and of x the distinct
+// elements idx names: (25600, 128) f32 moves 34.5 MB, 0.0103 ms at
+// 3.35 TB/s.  Design: one thread per element; a warp reads 32 consecutive
+// indices and writes 32 consecutive outputs, so idx and out move in whole
+// sectors, while its 32 reads of x land on 32 random rows: 32 L2 sectors
+// of 32 bytes for 128 (f32) or 64 (bf16) useful bytes.  That scattered
+// traffic, not the bytes, sets the large cases' time at ~2.8x the bound
+// (f32): with the rows in order the same kernel takes 1.6x its bound
+// (chip_smoke.py phase `gather`, "rows in order"; PERF.md).  Two other
+// bodies were timed on the probe's six cases and not kept (PERF.md):
+// 16-byte loads of idx and stores of out with 4 or 8 gathers per thread
+// moved nothing, and a column slab of x staged in shared memory was
+// slower (at most 227 KB of S rows leaves slabs 2-8 bytes wide at the
+// large cases, so loading them costs as many sectors as the gathers).
 
 #include <cuda_runtime.h>
 #include <stdint.h>

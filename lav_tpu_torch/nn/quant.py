@@ -244,7 +244,25 @@ def conv2d_int8_plain(xq, w_int8, w_scale, s_x, b, stride, padding,
     return y.to(out_dtype).permute(0, 2, 3, 1)
 
 
-_OUT = {torch.bfloat16: "bf16", torch.float32: "f32"}
+_ENTRY = {torch.bfloat16: native.ENTRIES["conv2d_int8_bf16"],
+          torch.float32: native.ENTRIES["conv2d_int8_f32"]}
+
+
+def _refuse(xq, w_int8, tensors, out_dtype):
+    """Raise with what makes the inputs unfit for kernel `conv2d_int8`."""
+    dev = xq.device
+    if dev.type != "cuda" or any(t is not None and t.device != dev
+                                 for t in tensors):
+        raise ValueError("conv2d_int8: every input must be on one CUDA "
+                         f"device (activations on {dev})")
+    if xq.dtype != torch.int8 or w_int8.dtype != torch.int8:
+        raise TypeError(f"conv2d_int8: x {xq.dtype}, w {w_int8.dtype} "
+                        "(int8)")
+    if out_dtype not in _ENTRY:
+        raise TypeError(f"conv2d_int8: output {out_dtype} (bf16/f32)")
+    raise ValueError(f"conv2d_int8: x {tuple(xq.shape)}, w "
+                     f"{tuple(w_int8.shape)}; NHWC and OHWI, C must match "
+                     "and be a multiple of 32")
 
 
 def conv2d_int8_nhwc(xq, w_int8, w_scale, s_x, b, stride, padding, dilation,
@@ -252,25 +270,22 @@ def conv2d_int8_nhwc(xq, w_int8, w_scale, s_x, b, stride, padding, dilation,
     """Kernel `conv2d_int8` (contract of `conv2d_int8_plain`); stride,
     dilation and lhs_dilation are (h, w) pairs, padding (h, w) or ((top,
     bottom), (left, right)).  CPU tensors take the plain version."""
-    if xq.device.type == "cpu":
-        return conv2d_int8_plain(xq, w_int8, w_scale, s_x, b, stride,
-                                 padding, dilation, out_dtype, lhs_dilation)
-    dev = xq.device
-    tensors = [w_int8, w_scale, s_x] + ([] if b is None else [b])
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
-        raise ValueError("conv2d_int8: every input must be on one CUDA "
-                         f"device (activations on {dev})")
-    if xq.dtype != torch.int8 or w_int8.dtype != torch.int8:
-        raise TypeError(f"conv2d_int8: x {xq.dtype}, w {w_int8.dtype} "
-                        "(int8)")
-    if out_dtype not in _OUT:
-        raise TypeError(f"conv2d_int8: output {out_dtype} (bf16/f32)")
+    dev = xq.get_device()
+    entry = _ENTRY.get(out_dtype)
+    # one test on the fast path; _refuse says what is wrong
+    if not (xq.is_cuda and entry is not None and xq.dtype is torch.int8
+            and w_int8.dtype is torch.int8 and xq.dim() == 4
+            and w_int8.dim() == 4 and w_int8.shape[3] == xq.shape[3]
+            and xq.shape[3] % 32 == 0 and w_int8.get_device() == dev
+            and w_scale.get_device() == dev and s_x.get_device() == dev
+            and (b is None or b.get_device() == dev)):
+        if xq.device.type == "cpu":
+            return conv2d_int8_plain(xq, w_int8, w_scale, s_x, b, stride,
+                                     padding, dilation, out_dtype,
+                                     lhs_dilation)
+        _refuse(xq, w_int8, [w_int8, w_scale, s_x, b], out_dtype)
     N, H, W, C = xq.shape
-    O, KH, KW, Cw = w_int8.shape
-    if Cw != C or C % 32:
-        raise ValueError(f"conv2d_int8: x {tuple(xq.shape)}, w "
-                         f"{tuple(w_int8.shape)}; C must match and be a "
-                         "multiple of 32")
+    O, KH, KW, _ = w_int8.shape
     pads = _pads(padding)
     OH, OW = _out_hw(H, W, KH, KW, stride, pads, dilation, lhs_dilation)
     if OH < 1 or OW < 1 or min(lhs_dilation) < 1:
@@ -284,28 +299,13 @@ def conv2d_int8_nhwc(xq, w_int8, w_scale, s_x, b, stride, padding, dilation,
             not w_int8.is_contiguous():
         raise ValueError("conv2d_int8: x and w must be contiguous and "
                          "16-byte aligned")
-    out = torch.empty((N, OH, OW, O), dtype=out_dtype, device=dev)
+    out = xq.new_empty((N, OH, OW, O), dtype=out_dtype)
     geom = (ctypes.c_int * 17)(N, H, W, C, O, KH, KW, stride[0], stride[1],
                                pads[0][0], pads[1][0], dilation[0],
                                dilation[1], lhs_dilation[0],
                                lhs_dilation[1], OH, OW)
-    fn = getattr(_lib(), f"conv2d_int8_{_OUT[out_dtype]}")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(xq.data_ptr(), w_int8.data_ptr(), w_scale.data_ptr(),
-                 s_x.data_ptr(), None if bias is None else bias.data_ptr(),
-                 out.data_ptr(), geom, stream)
-    native.check(err, "conv2d_int8")
-    native.LAUNCHES["conv2d_int8"] += 1
+    native.launch(entry, dev, xq.data_ptr(), w_int8.data_ptr(),
+                  w_scale.data_ptr(), s_x.data_ptr(),
+                  None if bias is None else bias.data_ptr(), out.data_ptr(),
+                  geom)
     return out
-
-
-def _lib():
-    lib = native.load("conv2d_int8")
-    for name in ("conv2d_int8_bf16", "conv2d_int8_f32"):
-        fn = getattr(lib, name)
-        if fn.argtypes is None:
-            fn.argtypes = [ctypes.c_void_p] * 6 + [
-                ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-    return lib

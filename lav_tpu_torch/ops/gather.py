@@ -9,14 +9,12 @@ tensor takes the plain version `take_along_rows_plain`.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from lav_tpu_torch.utils import native
 
-_ENTRY = {torch.float32: "take_along_rows_b32",
-          torch.bfloat16: "take_along_rows_b16"}
+_ENTRY = {torch.float32: native.ENTRIES["take_along_rows_b32"],
+          torch.bfloat16: native.ENTRIES["take_along_rows_b16"]}
 
 
 def take_along_rows_plain(x, idx):
@@ -30,8 +28,24 @@ def take_along_rows(x, idx):
     (S, L) f32 or bf16, idx (M, L) int32 -> (M, L) in x's dtype; on the
     card an index outside [0, S) gives 0.  CPU tensors take the plain
     version."""
-    if x.device.type == "cpu":
-        return take_along_rows_plain(x, idx)
+    entry = _ENTRY.get(x.dtype)
+    xs, ids = x.shape, idx.shape
+    dev = x.get_device()
+    # one test on the fast path; _refuse says what is wrong
+    if not (x.is_cuda and entry is not None and idx.dtype is torch.int32
+            and len(xs) == 2 and len(ids) == 2 and ids[1] == xs[1]
+            and idx.get_device() == dev and x.is_contiguous()
+            and idx.is_contiguous()):
+        if x.device.type == "cpu":
+            return take_along_rows_plain(x, idx)
+        _refuse(x, idx)
+    out = x.new_empty(ids)
+    native.launch(entry, dev, x.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                  xs[0], ids[0], xs[1])
+    return out
+
+
+def _refuse(x, idx):
     if x.device.type != "cuda" or idx.device != x.device:
         raise ValueError(f"take_along_rows: x on {x.device}, idx on "
                          f"{idx.device}; both must be on one CUDA device")
@@ -41,27 +55,4 @@ def take_along_rows(x, idx):
     if x.ndim != 2 or idx.ndim != 2 or idx.shape[1] != x.shape[1]:
         raise ValueError(f"take_along_rows: x {tuple(x.shape)}, idx "
                          f"{tuple(idx.shape)}")
-    if not (x.is_contiguous() and idx.is_contiguous()):
-        raise ValueError("take_along_rows: inputs must be contiguous")
-    S, L = x.shape
-    M = idx.shape[0]
-    out = torch.empty((M, L), dtype=x.dtype, device=x.device)
-    fn = getattr(_lib(), _ENTRY[x.dtype])
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), idx.data_ptr(), out.data_ptr(), S, M, L,
-                 stream)
-    native.check(err, "take_along_rows")
-    native.LAUNCHES["take_along_rows"] += 1
-    return out
-
-
-def _lib():
-    lib = native.load("take_along_rows")
-    for name in _ENTRY.values():
-        fn = getattr(lib, name)
-        if fn.argtypes is None:
-            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3 + [
-                ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-    return lib
+    raise ValueError("take_along_rows: inputs must be contiguous")

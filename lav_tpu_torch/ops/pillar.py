@@ -29,7 +29,6 @@ lav_tpu's Pallas `scatter_pallas` (ops/pillar_pallas2.py), and
 
 from __future__ import annotations
 
-import ctypes
 from typing import Sequence
 
 import torch
@@ -109,54 +108,54 @@ def pillar_scatter_max_plain(feat, pid, num_segments: int):
     return torch.where(canvas > neg, canvas, torch.zeros_like(canvas))
 
 
-# kernel name (its launch count) and C entry per feature dtype
-_K2_DTYPES = {torch.float32: ("pillar_scatter_max", "pillar_scatter_max_f32"),
-              torch.bfloat16: ("pillar_scatter_max_bf16",
-                               "pillar_scatter_max_bf16")}
+_K2_ENTRY = {torch.float32: native.ENTRIES["pillar_scatter_max_f32"],
+             torch.bfloat16: native.ENTRIES["pillar_scatter_max_bf16"]}
 
 
 def pillar_scatter_max(feat, pid, num_segments: int):
     """Kernel `pillar_scatter_max` (contract of `pillar_scatter_max_plain`),
     f32 or bf16 (C even).  CPU tensors take the plain version."""
-    if feat.device.type == "cpu":
-        return pillar_scatter_max_plain(feat, pid, num_segments)
-    if feat.device.type != "cuda" or pid.device != feat.device:
-        raise ValueError(f"pillar_scatter_max: feat on {feat.device}, pid on "
-                         f"{pid.device}; both must be on one CUDA device")
-    if feat.dtype not in _K2_DTYPES or pid.dtype != torch.int32:
-        raise TypeError(f"pillar_scatter_max: feat {feat.dtype} (f32/bf16), "
-                        f"pid {pid.dtype} (int32)")
-    if feat.ndim != 2 or pid.shape != feat.shape[:1]:
-        raise ValueError(f"pillar_scatter_max: feat {tuple(feat.shape)}, pid "
-                         f"{tuple(pid.shape)}")
-    if not (feat.is_contiguous() and pid.is_contiguous()):
-        raise ValueError("pillar_scatter_max: inputs must be contiguous")
+    return _scatter("pillar_scatter_max", _K2_ENTRY.get(feat.dtype),
+                    pillar_scatter_max_plain, feat.new_empty, feat, pid,
+                    num_segments)
+
+
+def _scatter(name, entry, plain, alloc, feat, pid, num_segments: int):
+    """Launch `entry` (kernel `name`) on (feat, pid) into an output from
+    `alloc`; CPU tensors take `plain`.  The checks the three scatters share
+    (int32 pid (N,) beside feat (N, C) on its device, both contiguous, bf16
+    rows in 4-byte channel pairs) are one test on the fast path; `_refuse`
+    says what is wrong."""
+    dev = feat.get_device()
+    if not (feat.is_cuda and entry is not None and pid.dtype is torch.int32
+            and feat.dim() == 2 and pid.dim() == 1
+            and pid.shape[0] == feat.shape[0] and pid.get_device() == dev
+            and feat.is_contiguous() and pid.is_contiguous()
+            and (feat.dtype is not torch.bfloat16
+                 or (feat.shape[1] % 2 == 0 and feat.data_ptr() % 4 == 0))):
+        if feat.device.type == "cpu":
+            return plain(feat, pid, num_segments)
+        _refuse(name, entry, feat, pid)
     N, C = feat.shape
-    if feat.dtype == torch.bfloat16 and (C % 2 or feat.data_ptr() % 4):
-        raise ValueError("pillar_scatter_max: bf16 rows must be channel "
-                         "pairs")
-    name, fn_name = _K2_DTYPES[feat.dtype]
-    out = torch.empty((num_segments, C), dtype=feat.dtype, device=feat.device)
-    fn = getattr(_lib(), fn_name)
-    with torch.cuda.device(feat.device):
-        stream = torch.cuda.current_stream(feat.device).cuda_stream
-        err = fn(feat.data_ptr(), pid.data_ptr(), out.data_ptr(), N, C,
-                 num_segments, stream)
-    native.check(err, name)
-    native.LAUNCHES[name] += 1
+    out = alloc((num_segments, C))
+    native.launch(entry, dev, feat.data_ptr(), pid.data_ptr(),
+                  out.data_ptr(), N, C, num_segments)
     return out
 
 
-def _lib():
-    lib = native.load("pillar_scatter_max")
-    for _, fn_name in _K2_DTYPES.values():
-        fn = getattr(lib, fn_name)
-        if fn.argtypes is None:
-            fn.argtypes = [ctypes.c_void_p] * 3 + [
-                ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-                ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-    return lib
+def _refuse(name, entry, feat, pid):
+    """Raise with what makes (feat, pid) unfit for kernel `name`."""
+    if feat.device.type != "cuda" or pid.device != feat.device:
+        raise ValueError(f"{name}: feat on {feat.device}, pid on "
+                         f"{pid.device}; both must be on one CUDA device")
+    if entry is None or pid.dtype != torch.int32:
+        raise TypeError(f"{name}: feat {feat.dtype}, pid {pid.dtype} (int32)")
+    if feat.ndim != 2 or pid.shape != feat.shape[:1]:
+        raise ValueError(f"{name}: feat {tuple(feat.shape)}, pid "
+                         f"{tuple(pid.shape)}")
+    if not (feat.is_contiguous() and pid.is_contiguous()):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    raise ValueError(f"{name}: bf16 rows must be channel pairs")
 
 
 def scatter_max_plain(feat, pid, num_segments: int):
@@ -181,64 +180,25 @@ def scatter_add_plain(feat, pid, num_segments: int):
     return acc.index_add_(0, pid.long()[ok], feat[ok])
 
 
-_K3_DTYPES = {("max", torch.bfloat16): "scatter_max_bf16",
-              ("max", torch.float32): "scatter_max_f32",
-              ("add", torch.float32): "scatter_add_f32"}
-
-
-def _k3(op: str, feat, pid, num_segments: int):
-    name = f"scatter_{op}"
-    if feat.device.type != "cuda" or pid.device != feat.device:
-        raise ValueError(f"{name}: feat on {feat.device}, pid on "
-                         f"{pid.device}; both must be on one CUDA device")
-    fn_name = _K3_DTYPES.get((op, feat.dtype))
-    if fn_name is None or pid.dtype != torch.int32:
-        raise TypeError(f"{name}: feat {feat.dtype}, pid {pid.dtype} (int32)")
-    if feat.ndim != 2 or pid.shape != feat.shape[:1]:
-        raise ValueError(f"{name}: feat {tuple(feat.shape)}, pid "
-                         f"{tuple(pid.shape)}")
-    if not (feat.is_contiguous() and pid.is_contiguous()):
-        raise ValueError(f"{name}: inputs must be contiguous")
-    N, C = feat.shape
-    if feat.dtype == torch.bfloat16 and (C % 2 or feat.data_ptr() % 4):
-        raise ValueError(f"{name}: bf16 rows must be channel pairs")
-    out = feat.new_zeros((num_segments, C))
-    fn = getattr(_lib_k3(), fn_name)
-    with torch.cuda.device(feat.device):
-        stream = torch.cuda.current_stream(feat.device).cuda_stream
-        err = fn(feat.data_ptr(), pid.data_ptr(), out.data_ptr(), N, C,
-                 num_segments, stream)
-    native.check(err, name)
-    native.LAUNCHES[name] += 1
-    return out
+_K3_ENTRY = {("max", torch.bfloat16): native.ENTRIES["scatter_max_bf16"],
+             ("max", torch.float32): native.ENTRIES["scatter_max_f32"],
+             ("add", torch.float32): native.ENTRIES["scatter_add_f32"]}
 
 
 def scatter_max(feat, pid, num_segments: int):
     """Kernel `scatter_max` (contract of `scatter_max_plain`), the canvas
     of the production route.  CPU tensors take the plain version."""
-    if feat.device.type == "cpu":
-        return scatter_max_plain(feat, pid, num_segments)
-    return _k3("max", feat, pid, num_segments)
+    return _scatter("scatter_max", _K3_ENTRY.get(("max", feat.dtype)),
+                    scatter_max_plain, feat.new_zeros, feat, pid,
+                    num_segments)
 
 
 def scatter_add(feat, pid, num_segments: int):
     """Kernel `scatter_add` (contract of `scatter_add_plain`), the
     decoration sums.  CPU tensors take the plain version."""
-    if feat.device.type == "cpu":
-        return scatter_add_plain(feat, pid, num_segments)
-    return _k3("add", feat, pid, num_segments)
-
-
-def _lib_k3():
-    lib = native.load("pillar_scatter")
-    for fn_name in _K3_DTYPES.values():
-        fn = getattr(lib, fn_name)
-        if fn.argtypes is None:
-            fn.argtypes = [ctypes.c_void_p] * 3 + [
-                ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-                ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-    return lib
+    return _scatter("scatter_add", _K3_ENTRY.get(("add", feat.dtype)),
+                    scatter_add_plain, feat.new_zeros, feat, pid,
+                    num_segments)
 
 
 class PointPillar(nn.Module):

@@ -1,10 +1,22 @@
-"""Build and load the port's CUDA kernels.
+"""Build, load and launch the port's CUDA kernels.
 
 Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc`
 into `_build/lib<name>.so` inside the package (listed in `.gitignore`) the
 first time a wrapper needs it, then loaded with `ctypes`.  `build_all`
 starts one `nvcc` per source, all at once.  A library is rebuilt when its
 source is newer.
+
+Every C entry is declared once, in `ENTRIES`, with its argument types:
+`c_void_p` for pointers and the stream (64 bits; a bare Python int would
+pass as a 32-bit C int and cut the pointer), `c_longlong` / `c_int` for
+sizes.  Every entry returns its `cudaError_t` and takes the stream last.
+`SOURCES` and `KERNELS` are read off `ENTRIES`, so a new entry is one line.
+When a library loads, each of its entries is resolved into a `ctypes`
+callable with those types set, kept on the `Entry`.  `launch` is the one
+path from a wrapper to the card: it passes PyTorch's current stream of the
+tensors' device (entering that device only when it is not the current
+one), raises with the kernel's name on a launch error, and counts the
+launch.
 
 `LAUNCHES` counts, per kernel, the wrapper calls that launched it on the
 card; `reset_launches` sets every count to 0.  A source may hold several
@@ -22,6 +34,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
@@ -29,19 +43,54 @@ BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-SOURCES = ("crop_shared", "pillar_scatter_max", "pillar_scatter",
-           "conv2d_int8", "take_along_rows")
-KERNELS = (
-    "crop_shared", "crop_shared_q8", "crop_shared_q8_s2d",  # crop_shared.cu
-    "pillar_scatter_max", "pillar_scatter_max_bf16",  # pillar_scatter_max.cu
-    "scatter_max", "scatter_add",                     # pillar_scatter.cu
-    "conv2d_int8",                                    # conv2d_int8.cu
-    "take_along_rows",                                # take_along_rows.cu
-)
+
+class Entry:
+    """C entry `symbol` of lib<source>.so, counted as kernel `kernel`;
+    `argtypes` are its arguments before the stream.  `fn` is the `ctypes`
+    callable, set when the library loads."""
+
+    __slots__ = ("source", "symbol", "kernel", "argtypes", "fn")
+
+    def __init__(self, source: str, symbol: str, kernel: str, argtypes):
+        self.source, self.symbol, self.kernel = source, symbol, kernel
+        self.argtypes = tuple(argtypes)
+        self.fn = None
+
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# feat, pid, out, n_points, C, segments
+_SCATTER = (_P, _P, _P, _LL, _I, _LL)
+ENTRIES = {e.symbol: e for e in (
+    # src, grid, out, B, H, W, C, K, Ho, Wo, vec; the q8 forms take inv_s
+    # after out
+    *(Entry("crop_shared", f"crop_shared_{dt}", "crop_shared",
+            (_P,) * 3 + (_I,) * 8) for dt in ("f32", "bf16")),
+    *(Entry("crop_shared", f"{k}_{dt}", k, (_P,) * 4 + (_I,) * 8)
+      for k in ("crop_shared_q8", "crop_shared_q8_s2d")
+      for dt in ("f32", "bf16")),
+    Entry("pillar_scatter_max", "pillar_scatter_max_f32",
+          "pillar_scatter_max", _SCATTER),
+    Entry("pillar_scatter_max", "pillar_scatter_max_bf16",
+          "pillar_scatter_max_bf16", _SCATTER),
+    Entry("pillar_scatter", "scatter_max_bf16", "scatter_max", _SCATTER),
+    Entry("pillar_scatter", "scatter_max_f32", "scatter_max", _SCATTER),
+    Entry("pillar_scatter", "scatter_add_f32", "scatter_add", _SCATTER),
+    # x, w, w_scale, x_scale, bias (or NULL), out, geom (int[17])
+    *(Entry("conv2d_int8", f"conv2d_int8_{dt}", "conv2d_int8", (_P,) * 7)
+      for dt in ("bf16", "f32")),
+    # x, idx, out, S, M, L
+    *(Entry("take_along_rows", f"take_along_rows_{b}", "take_along_rows",
+            (_P,) * 3 + (_LL,) * 3) for b in ("b32", "b16")),
+)}
+# the sources and the counted kernels, in the order of their first entry
+SOURCES = tuple(dict.fromkeys(e.source for e in ENTRIES.values()))
+KERNELS = tuple(dict.fromkeys(e.kernel for e in ENTRIES.values()))
 LAUNCHES = {name: 0 for name in KERNELS}
+
 
 _libs: dict = {}
 _lock = threading.Lock()
+_open = ctypes.CDLL
 
 
 def reset_launches() -> None:
@@ -96,19 +145,41 @@ def build_all(names=SOURCES) -> dict:
     return logs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of source `name`, built first if needed."""
+def load(name: str):
+    """The loaded library of source `name`, built first if needed; its
+    entries are resolved with their argument types as it loads."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             if _stale(name):
                 build_all((name,))
-            lib = ctypes.CDLL(str(_lib_path(name)))
+            lib = _open(str(_lib_path(name)))
+            for entry in ENTRIES.values():
+                if entry.source == name:
+                    fn = getattr(lib, entry.symbol)
+                    fn.argtypes = [*entry.argtypes, _P]
+                    fn.restype = ctypes.c_int
+                    entry.fn = fn
             _libs[name] = lib
         return lib
 
 
-def check(err: int, what: str) -> None:
-    """Raise if a launch returned a non-zero cudaError_t."""
-    if err != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
+def launch(entry: Entry, device: int, *args) -> None:
+    """Launch `entry` with `args` (pointers as ints, sizes) on PyTorch's
+    current stream of CUDA device index `device`.  Raises with the kernel's
+    name if the launch returns an error; counts it otherwise."""
+    fn = entry.fn
+    if fn is None:
+        load(entry.source)
+        fn = entry.fn
+    # the cheapest public reads: the current device, then that device's
+    # current stream (chip_smoke.py phase `gather` times the options)
+    if device == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{entry.kernel} ({entry.symbol}): CUDA launch "
+                           f"failed with cudaError {err}")
+    LAUNCHES[entry.kernel] += 1

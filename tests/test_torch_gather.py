@@ -57,3 +57,20 @@ def test_take_along_rows_wrapper_routes_by_device():
                        take_along_rows_plain(x, idx))
     with pytest.raises(ValueError):
         take_along_rows(x.to("meta"), idx.to("meta"))
+
+
+@pytest.mark.parametrize("bad", [16, -1, 1 << 20])
+def test_take_along_rows_plain_refuses_out_of_range_bf16(bad):
+    """The plain version's contract is idx in [0, S): on the CPU an index
+    outside it raises, where the kernel writes 0 (the card's contract,
+    checked by chip_smoke.py phase `gather`); in range, bf16 bits move
+    unchanged."""
+    x = torch.randn(16, 8).bfloat16()
+    idx = torch.randint(0, 16, (5, 8), dtype=torch.int32)
+    out = take_along_rows(x, idx)
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out.view(torch.int16), torch.from_numpy(
+        np.take_along_axis(x.view(torch.int16).numpy(), idx.numpy(), 0)))
+    idx[2, 3] = bad
+    with pytest.raises((RuntimeError, IndexError)):
+        take_along_rows(x, idx)

@@ -1,0 +1,193 @@
+"""The port's one launch path (lav_tpu_torch/utils/native.py), on the CPU.
+
+No nvcc and no card are needed: the C entries' signatures are read from
+the sources in csrc/ and held against the declared argument types; a stub
+library of Python callbacks stands in for a built one, so that loading,
+argument passing (a pointer above 2^32 must arrive whole), the stream,
+the launch count and the error check can be exercised.
+"""
+
+import ctypes
+import re
+import types
+
+import pytest
+import torch
+
+from lav_tpu_torch.utils import device as device_mod
+from lav_tpu_torch.utils import native
+
+_C_TYPES = {"long long": ctypes.c_longlong, "int": ctypes.c_int}
+
+
+def _c_signatures():
+    """{symbol: [ctypes type per parameter]} of every extern "C" entry in
+    csrc/*.cu: a pointer of any type is c_void_p."""
+    sigs = {}
+    for src in native.CSRC_DIR.glob("*.cu"):
+        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
+                                       src.read_text()):
+            sigs[name] = [ctypes.c_void_p if "*" in p else
+                          _C_TYPES[" ".join(p.split()[:-1])]
+                          for p in params.split(",")]
+    return sigs
+
+
+def test_entries_match_the_c_sources():
+    sigs = _c_signatures()
+    assert set(sigs) == set(native.ENTRIES)
+    for symbol, entry in native.ENTRIES.items():
+        assert entry.source in native.SOURCES and entry.kernel in \
+            native.LAUNCHES
+        assert (native.CSRC_DIR / f"{entry.source}.cu").read_text().count(
+            f'extern "C" int {symbol}(') == 1
+        # every entry takes the stream last, as a pointer
+        assert [*entry.argtypes, ctypes.c_void_p] == sigs[symbol], symbol
+
+
+class _StubLib:
+    """Stands in for a loaded kernel library: each symbol is a C function
+    pointer to a Python callback that reads every argument as a 64-bit
+    integer (pointers, long longs and the stream; an int is checked in its
+    low 32 bits) and returns `self.err`."""
+
+    def __init__(self, path):
+        self.path, self.calls, self.err, self._keep = path, [], 0, []
+
+    def __getattr__(self, symbol):
+        if symbol.startswith("_"):
+            raise AttributeError(symbol)
+        n = len(native.ENTRIES[symbol].argtypes) + 1
+        proto = ctypes.CFUNCTYPE(ctypes.c_int, *[ctypes.c_uint64] * n)
+
+        def body(*args):
+            self.calls.append((symbol, args))
+            return self.err
+
+        cb = proto(body)
+        self._keep.append(cb)
+        fn = ctypes.CFUNCTYPE(ctypes.c_int)(
+            ctypes.cast(cb, ctypes.c_void_p).value)
+        setattr(self, symbol, fn)   # CDLL caches its function pointers too
+        return fn
+
+
+@pytest.fixture
+def stub(monkeypatch):
+    """native with every library replaced by a _StubLib; the entries and
+    counts are restored afterwards."""
+    saved = {s: e.fn for s, e in native.ENTRIES.items()}
+    libs = {}
+
+    def open_stub(path):
+        libs[path] = _StubLib(path)
+        return libs[path]
+
+    monkeypatch.setattr(native, "_open", open_stub)
+    monkeypatch.setattr(native, "_stale", lambda name: False)
+    monkeypatch.setattr(native, "_libs", {})
+    monkeypatch.setattr(native, "LAUNCHES", dict.fromkeys(native.KERNELS, 0))
+    for e in native.ENTRIES.values():
+        e.fn = None
+    yield libs
+    for s, e in native.ENTRIES.items():
+        e.fn = saved[s]
+
+
+def test_load_resolves_each_entry_once_with_64_bit_pointers(stub):
+    for source in native.SOURCES:
+        lib = native.load(source)
+        assert native.load(source) is lib             # loaded once
+    assert len(stub) == len(native.SOURCES)
+    for symbol, entry in native.ENTRIES.items():
+        fn = entry.fn
+        assert fn is not None, symbol
+        assert fn.argtypes == [*entry.argtypes, ctypes.c_void_p], symbol
+        assert fn.restype is ctypes.c_int
+        for t, want in zip(fn.argtypes, _c_signatures()[symbol]):
+            assert t is want
+            assert ctypes.sizeof(t) == (4 if t is ctypes.c_int else 8)
+
+
+def _fake_stream(monkeypatch, index=0, handle=0x7F00DEADBEEF):
+    """Device `index` is current; every device's current stream is
+    `handle`."""
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: index)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None:
+                        types.SimpleNamespace(device_index=d,
+                                              cuda_stream=handle))
+
+
+def test_launch_passes_pointers_whole_and_counts(stub, monkeypatch):
+    _fake_stream(monkeypatch)
+    entry = native.ENTRIES["take_along_rows_b32"]
+    ptrs = (0x7F12_3456_7890, 0x5_0000_0010, 0xFFFF_FFFF_FFF0)
+    native.launch(entry, 0, *ptrs, 25600, 25600, 128)
+    (symbol, args), = next(iter(stub.values())).calls
+    assert symbol == "take_along_rows_b32"
+    assert args == (*ptrs, 25600, 25600, 128, 0x7F00DEADBEEF)
+    assert native.LAUNCHES["take_along_rows"] == 1
+    # an int argument (C of the scatters) in its low 32 bits
+    scatter = native.ENTRIES["scatter_add_f32"]
+    native.launch(scatter, 0, 0x7F00_0000_1000, 0x7F00_0000_2000,
+                  0x7F00_0000_3000, 960000, 4, 16 * 102400 + 1)
+    lib = stub[str(native._lib_path("pillar_scatter"))]
+    args = lib.calls[-1][1]
+    assert args[:4] == (0x7F00_0000_1000, 0x7F00_0000_2000,
+                        0x7F00_0000_3000, 960000)
+    assert args[4] & 0xFFFFFFFF == 4 and args[5:] == (16 * 102400 + 1,
+                                                      0x7F00DEADBEEF)
+    assert native.LAUNCHES["scatter_add"] == 1
+    native.reset_launches()
+    assert not any(native.LAUNCHES.values())
+
+
+def test_launch_raises_with_the_kernel_name_and_does_not_count(stub,
+                                                               monkeypatch):
+    _fake_stream(monkeypatch)
+    entry = native.ENTRIES["conv2d_int8_bf16"]
+    native.load(entry.source).err = 700    # cudaErrorIllegalAddress
+    with pytest.raises(RuntimeError, match=r"conv2d_int8 .*cudaError 700"):
+        native.launch(entry, 0, *[1 << 40] * 6, None)
+    assert native.LAUNCHES["conv2d_int8"] == 0
+
+
+def test_launch_enters_another_device_only_when_it_differs(stub,
+                                                           monkeypatch):
+    _fake_stream(monkeypatch, index=0)
+    entered = []
+
+    class Guard:
+        def __init__(self, d):
+            self.d = d
+
+        def __enter__(self):
+            entered.append(self.d)
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(torch.cuda, "device", Guard)
+    entry = native.ENTRIES["crop_shared_f32"]
+    native.launch(entry, 0, 1, 2, 3, *[8] * 8)
+    assert entered == []
+    native.launch(entry, 1, 1, 2, 3, *[8] * 8)
+    assert entered == [1]
+    assert native.LAUNCHES["crop_shared"] == 2
+
+
+def test_cuda_request_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for asked in ("cuda", None):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            device_mod.resolve_device(asked)
+    assert device_mod.resolve_device("cpu").type == "cpu"
+
+
+def test_launch_without_a_card_raises(stub):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the launch would run")
+    with pytest.raises((RuntimeError, AssertionError)):
+        native.launch(native.ENTRIES["take_along_rows_b16"], 0, 1, 2, 3, 8,
+                      8, 128)
+    assert not any(native.LAUNCHES.values())
