@@ -31,9 +31,12 @@ Phases, each printing its own line and raising on failure:
   conv_int8  kernel conv2d_int8 against its plain version at every int8
           conv shape of the production tick (16 egos), and at the variant
           routes' shapes (the s2d conv1 and the three int8 upconvs as
-          input-dilated convs), f32 output with a bias and bf16 output
-          without; must be exact; cuDNN's bf16 conv (F.conv_transpose2d for
-          the upconvs) at the same shape is timed beside it
+          transposed convs), f32 output with a bias and bf16 output
+          without; must be exact; per shape the device-only and
+          host-paced ms, host us per call, useful TOPS and share of the
+          int8 peak, and the work walked over the useful work; beside it
+          torch._int_mm for a 1x1 conv (the same int32 sums), else cuDNN's
+          bf16 conv (F.conv_transpose2d for the upconvs)
   gather  kernel take_along_rows (the gather probe, scripts/exp_gather.py)
           at the probe's six (S, L, dtype) cases; must be exact, and give
           0 for an index outside [0, S); host-paced and device-only times
@@ -200,7 +203,8 @@ def phase_build(ctx):
     t0 = time.perf_counter()
     logs = native.build_all()
     for name, out in logs.items():
-        regs = [ln.strip() for ln in out.splitlines() if "registers" in ln]
+        regs = [ln.strip() for ln in out.splitlines()
+                if any(w in ln for w in ("registers", "spill", "arning"))]
         log("build", f"{name}: {'; '.join(regs) or 'built'}")
     log("build", f"nvcc built {sorted(logs) or 'nothing (up to date)'} in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -700,6 +704,17 @@ def _taps_hit(n, k, pads, lhs):
                and 0 <= (o - pads[0] + t) // lhs < n)
 
 
+def _taps_walked(n, k, stride, pads, lhs):
+    """(output position, tap) pairs along one axis that a conv split into
+    output phases walks: the taps whose position in the dilated, padded
+    input is a multiple of the dilation, on an input pixel or in the
+    padding (each phase walks its taps at every one of its outputs; only
+    the taps that land on an inserted zero are left out)."""
+    out = ((n - 1) * lhs + 1 + pads[0] + pads[1] - k) // stride + 1
+    return sum(1 for o in range(out) for t in range(k)
+               if (o * stride - pads[0] + t) % lhs == 0)
+
+
 def _conv_case(torch, dev, g, N, H, W, C, O, k, stride, pads, lhs, w=None):
     """Random int8 inputs of one conv, checked exactly against the plain
     version (f32 output with a bias, then bf16 without); returns (args of
@@ -731,68 +746,138 @@ def _conv_case(torch, dev, g, N, H, W, C, O, k, stride, pads, lhs, w=None):
     return args, out, worst
 
 
+def _time_conv(torch, args, yardsticks, useful, walked, dense, nbytes):
+    """One conv shape's numbers: the kernel's host-paced (`ms`) and
+    device-only ms, host us per call, the plain version's ms, each
+    yardstick's (name -> fn) host-paced and device-only ms, the useful
+    int8 TOPS and share of the peak, the work walked and the work an
+    input-dilated conv walks (`dense`) over the useful work, and the
+    bound."""
+    from lav_tpu_torch.nn.quant import conv2d_int8_nhwc, conv2d_int8_plain
+
+    def run():
+        conv2d_int8_nhwc(*args)
+
+    dev_ms = device_ms(torch, run, iters=10)
+    r = dict(ms=cuda_ms(torch, run, iters=5), device_ms=dev_ms,
+             host_us=host_us(torch, run, n=20),
+             plain_ms=cuda_ms(torch, lambda: conv2d_int8_plain(*args),
+                              iters=1, warmup=1),
+             ops=useful, walked_ops=walked, dense_ops=dense, nbytes=nbytes)
+    for name, fn in yardsticks.items():
+        r[f"{name}_ms"] = cuda_ms(torch, fn, iters=5)
+        r[f"{name}_device_ms"] = device_ms(torch, fn, iters=10)
+    r["bound_ms"], r["bound_by"] = bound_ms(nbytes, useful, INT8_OPS)
+    r["tops"] = useful / dev_ms / 1e9
+    r["peak_share"] = r["tops"] * 1e12 / INT8_OPS
+    return r
+
+
+YARDSTICKS = {"cudnn": "cuDNN bf16 conv (another function)",
+              "tconv": "F.conv_transpose2d bf16 (another function)",
+              "int_mm": "torch._int_mm (the same int32 sums)"}
+
+
+def _conv_line(name, count, shape, r):
+    libs = "; ".join(
+        f"{what} {r[f'{key}_ms']:.4f} ms host-paced, "
+        f"{r[f'{key}_device_ms']:.4f} device-only"
+        for key, what in YARDSTICKS.items() if f"{key}_ms" in r)
+    return (f"{name} x{count}: {shape}: exact, host-paced {r['ms']:.4f} ms,"
+            f" device-only {r['device_ms']:.4f} ms, host {r['host_us']:.1f}"
+            f" us a call, {r['tops']:.1f} TOPS useful = "
+            f"{100 * r['peak_share']:.1f}% of the int8 peak, walked/useful "
+            f"{r['walked_ops'] / r['ops']:.3f} (an input-dilated conv "
+            f"{r['dense_ops'] / r['ops']:.3f}); plain {r['plain_ms']:.3f} "
+            f"ms; {libs}; bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
+def _yardsticks(torch, xq, w, k, st, pad):
+    """The PyTorch calls timed beside a direct conv: cuDNN's bf16 conv
+    (another function), and for a 1x1 conv torch._int_mm over the input
+    subsampled beforehand (cuBLASLt's int8 matmul: the same int32
+    sums)."""
+    import torch.nn.functional as F
+
+    xb = xq.permute(0, 3, 1, 2).to(torch.bfloat16)
+    wb = w.permute(0, 3, 1, 2).to(torch.bfloat16)
+    fns = {"cudnn": lambda: F.conv2d(xb, wb, None, st, pad)}
+    if k == 1:
+        x2 = xq[:, ::st, ::st].reshape(-1, xq.shape[3]).contiguous()
+        w2 = w.reshape(w.shape[0], -1).t()
+        fns["int_mm"] = lambda: torch._int_mm(x2, w2)
+    return fns
+
+
 def phase_conv_int8(ctx):
     import torch
     import torch.nn.functional as F
 
-    from lav_tpu_torch.nn.quant import (
-        conv2d_int8_nhwc, conv2d_int8_plain, s2d_weight,
-    )
+    from lav_tpu_torch.nn.quant import s2d_weight
 
     dev = torch.device(ctx["device"])
     g = torch.Generator(device=dev).manual_seed(5)
     shapes = _conv_int8_shapes()
     assert sum(r[-1] for r in shapes) == INT8_CONVS_PER_TICK
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-               ops=0.0, nbytes=0.0)
+    # X_ms host-paced, X_device_ms device-only, as in phases scatter and
+    # gather
+    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "ops", "nbytes",
+            "cudnn_ms", "cudnn_device_ms")
+    tot = dict.fromkeys(keys + ("one_by_one_ms", "one_by_one_device_ms",
+                                "int_mm_ms", "int_mm_device_ms"), 0.0)
     per_shape = {}
     worst = 0.0
     for name, N, H, W, C, O, k, st, pad, count in shapes:
+        pads = ((pad, pad), (pad, pad))
         args, out, err = _conv_case(torch, dev, g, N, H, W, C, O, k, st,
-                                    ((pad, pad), (pad, pad)), 1)
+                                    pads, 1)
         worst = max(worst, err)
         xq, w = args[0], args[1]
-        ms = cuda_ms(torch, lambda: conv2d_int8_nhwc(*args), iters=5)
-        plain_ms = cuda_ms(torch, lambda: conv2d_int8_plain(*args), iters=1,
-                           warmup=1)
-        xb = xq.permute(0, 3, 1, 2).to(torch.bfloat16)
-        wb = w.permute(0, 3, 1, 2).to(torch.bfloat16)
-        lib_ms = cuda_ms(torch, lambda: F.conv2d(xb, wb, None, st, pad),
-                         iters=5)
         OH, OW = out.shape[1:3]
-        ops = 2.0 * N * OH * OW * O * k * k * C
+        useful = 2.0 * N * OH * OW * O * k * k * C
+        walked = 2.0 * N * O * C * _taps_walked(H, k, st, pads[0], 1) \
+            * _taps_walked(W, k, st, pads[1], 1)
         nbytes = xq.numel() + w.numel() + O * 4 + out.numel() * 2
-        bms, by = bound_ms(nbytes, ops, INT8_OPS)
-        log("conv_int8", f"{name} x{count}: {N}x{H}x{W}x{C} -> {O} k{k} "
-            f"s{st}: exact, kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TOPS), "
-            f"plain {plain_ms:.3f} ms, cuDNN bf16 conv (another function) "
-            f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
-        per_shape[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                               bound_ms=bms, ops=ops, nbytes=nbytes,
-                               count=count)
-        for key, val in (("ms", ms), ("plain_ms", plain_ms),
-                         ("library_ms", lib_ms), ("bound_ms", bms),
-                         ("ops", ops), ("nbytes", nbytes)):
-            tot[key] += count * val
-        del xq, w, out, xb, wb, args
+        libs = _yardsticks(torch, xq, w, k, st, pad)
+        r = _time_conv(torch, args, libs, useful, walked, useful, nbytes)
+        log("conv_int8", _conv_line(name, count, f"{N}x{H}x{W}x{C} -> {O} "
+                                    f"k{k} s{st}", r))
+        r["count"] = count
+        per_shape[name] = r
+        for key in keys:
+            tot[key] += count * r[key]
+        if k == 1:
+            for key in ("ms", "device_ms"):
+                tot[f"one_by_one_{key}"] += count * r[key]
+                tot[f"int_mm_{key}"] += count * r[f"int_mm_{key}"]
+        del xq, w, out, args, libs
         torch.cuda.empty_cache()
     by = ("operations" if tot["ops"] / INT8_OPS
           >= tot["nbytes"] / HBM_BYTES_PER_S else "bytes")
-    # no PyTorch call computes an int8 convolution on CUDA: library_ms is
-    # null; cuDNN's bf16 conv (another function) is kept beside it
-    ctx["conv_int8"] = dict(max_abs_err=worst, ms=tot["ms"],
-                            plain_ms=tot["plain_ms"], library_ms=None,
-                            bound_ms=tot["bound_ms"], bound_by=by,
-                            cudnn_bf16_conv_ms=tot["library_ms"])
+    # no one PyTorch call computes an int8 convolution on CUDA: library_ms
+    # is null; cuDNN's bf16 conv (another function) and, for the 1x1
+    # convs, torch._int_mm (the same sums) are kept beside it
+    ctx["conv_int8"] = dict(
+        max_abs_err=worst, ms=tot["ms"], device_ms=tot["device_ms"],
+        plain_ms=tot["plain_ms"], library_ms=None, bound_ms=tot["bound_ms"],
+        bound_by=by, cudnn_bf16_conv_ms=tot["cudnn_ms"],
+        cudnn_bf16_conv_device_ms=tot["cudnn_device_ms"],
+        one_by_one_ms=tot["one_by_one_ms"],
+        one_by_one_device_ms=tot["one_by_one_device_ms"],
+        int_mm_1x1_ms=tot["int_mm_ms"],
+        int_mm_1x1_device_ms=tot["int_mm_device_ms"])
     log("conv_int8", f"one production tick ({INT8_CONVS_PER_TICK} convs): "
-        f"kernel {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, cuDNN "
-        f"bf16 {tot['library_ms']:.3f} ms, bound {tot['bound_ms']:.4f} ms "
-        f"({by}) on {ctx.get('smi', '?')}")
+        f"kernel host-paced {tot['ms']:.3f} ms, device-only "
+        f"{tot['device_ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, bound "
+        f"{tot['bound_ms']:.4f} ms ({by}); cuDNN bf16 {tot['cudnn_ms']:.3f}"
+        f" ms host-paced, {tot['cudnn_device_ms']:.3f} device-only; the 1x1"
+        f" convs {tot['one_by_one_device_ms']:.4f} ms device-only against "
+        f"torch._int_mm's {tot['int_mm_device_ms']:.4f} on "
+        f"{ctx.get('smi', '?')}")
 
     # the variant routes' shapes: the s2d conv1 (its weight derived from a
-    # 7x7 one, zeros included) and the upconvs as input-dilated convs
-    var = {k: tot[k] - per_shape["planner.conv1"][k]
-           for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    # 7x7 one, zeros included) and the upconvs as transposed convs
+    var = {k: tot[k] - per_shape["planner.conv1"][k] for k in keys}
     for (name, N, H, W, C, O, k, pads, lhs, count,
          tconv) in _variant_conv_shapes():
         w = None
@@ -805,53 +890,54 @@ def phase_conv_int8(ctx):
                                     pads, lhs, w)
         worst = max(worst, err)
         xq, w = args[0], args[1]
-        ms = cuda_ms(torch, lambda: conv2d_int8_nhwc(*args), iters=5)
-        plain_ms = cuda_ms(torch, lambda: conv2d_int8_plain(*args), iters=1,
-                           warmup=1)
+        OH, OW = out.shape[1:3]
         xb = xq.permute(0, 3, 1, 2).to(torch.bfloat16)
         if tconv is None:
             # cuDNN's bf16 conv on the input padded once beforehand
             xb = F.pad(xb, (pads[1][0], pads[1][1], pads[0][0], pads[0][1]))
             wb = w.permute(0, 3, 1, 2).to(torch.bfloat16)
-            lib_ms = cuda_ms(torch, lambda: F.conv2d(xb, wb), iters=5)
-            useful = 2.0 * N * out.shape[1] * out.shape[2] * O * 49 * (C // 4)
-            what = "cuDNN bf16 conv"
+            libs = {"cudnn": lambda: F.conv2d(xb, wb)}
+            useful = 2.0 * N * OH * OW * O * 49 * (C // 4)
         else:
             s, p, op = tconv
             # the transposed conv's own weight: the flipped kernel, (I, O,
             # kh, kw)
             wb = w.flip(1, 2).permute(3, 0, 1, 2).to(torch.bfloat16)
-            lib_ms = cuda_ms(torch, lambda: F.conv_transpose2d(
-                xb, wb, None, s, p, op), iters=5)
+            libs = {"tconv": lambda: F.conv_transpose2d(
+                xb, wb, None, s, p, op)}
             useful = (2.0 * N * O * C * _taps_hit(H, k, pads[0], lhs)
                       * _taps_hit(W, k, pads[1], lhs))
-            what = "F.conv_transpose2d bf16"
-        walked = 2.0 * N * out.shape[1] * out.shape[2] * O * k * k * C
+        walked = 2.0 * N * O * C * _taps_walked(H, k, 1, pads[0], lhs) \
+            * _taps_walked(W, k, 1, pads[1], lhs)
+        dense = 2.0 * N * OH * OW * O * k * k * C
         nbytes = xq.numel() + w.numel() + O * 4 + out.numel() * 2
-        bms, by = bound_ms(nbytes, useful, INT8_OPS)
-        log("conv_int8", f"{name} x{count}: {N}x{H}x{W}x{C} -> {O} k{k} "
-            f"pads {pads} input dilation {lhs}: exact, kernel {ms:.4f} ms "
-            f"({useful / ms / 1e9:.1f} TOPS useful, {walked / ms / 1e9:.1f} "
-            f"walked; walked/useful {walked / useful:.2f}), plain "
-            f"{plain_ms:.3f} ms, {what} (another function) {lib_ms:.4f} ms, "
-            f"bound {bms:.4f} ms ({by})")
-        per_shape[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                               bound_ms=bms, ops=useful, walked_ops=walked,
-                               nbytes=nbytes, count=count)
-        for key, val in (("ms", ms), ("plain_ms", plain_ms),
-                         ("library_ms", lib_ms), ("bound_ms", bms)):
-            var[key] += count * val
-        del xq, w, out, xb, wb, args
+        r = _time_conv(torch, args, libs, useful, walked, dense, nbytes)
+        log("conv_int8", _conv_line(
+            name, count, f"{N}x{H}x{W}x{C} -> {O} k{k} pads {pads} input "
+            f"dilation {lhs}", r))
+        r["count"] = count
+        per_shape[name] = r
+        lib = "cudnn" if tconv is None else "tconv"
+        r["cudnn_ms"], r["cudnn_device_ms"] = (r[f"{lib}_ms"],
+                                               r[f"{lib}_device_ms"])
+        for key in keys:
+            var[key] += count * r[key]
+        del xq, w, out, xb, wb, args, libs
         torch.cuda.empty_cache()
     ctx["conv_int8"].update(max_abs_err=worst, variants_ms=var["ms"],
+                            variants_device_ms=var["device_ms"],
                             variants_plain_ms=var["plain_ms"],
                             variants_bound_ms=var["bound_ms"],
-                            variants_cudnn_bf16_ms=var["library_ms"])
+                            variants_cudnn_bf16_ms=var["cudnn_ms"],
+                            variants_cudnn_bf16_device_ms=var[
+                                "cudnn_device_ms"])
     ctx["conv_shapes"] = per_shape
     log("conv_int8", f"one variants tick ({INT8_CONVS_PER_TICK + INT8_UPCONVS}"
-        f" convs, s2d conv1): kernel {var['ms']:.3f} ms, plain "
-        f"{var['plain_ms']:.3f} ms, cuDNN bf16 {var['library_ms']:.3f} ms, "
-        f"bound {var['bound_ms']:.4f} ms on {ctx.get('smi', '?')}")
+        f" convs, s2d conv1): kernel host-paced {var['ms']:.3f} ms, "
+        f"device-only {var['device_ms']:.3f} ms, plain {var['plain_ms']:.3f}"
+        f" ms, cuDNN bf16 {var['cudnn_ms']:.3f} ms host-paced, "
+        f"{var['cudnn_device_ms']:.3f} device-only, bound "
+        f"{var['bound_ms']:.4f} ms on {ctx.get('smi', '?')}")
 
 
 GATHER_CASES = ((8, 128, "float32"), (512, 128, "float32"),
@@ -1263,6 +1349,10 @@ def _profile_one(ctx, config, setup):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         log("profile", f"  {e.self_device_time_total / 1e3:8.3f} ms "
             f"x{e.count:<5d} {e.key[:90]}")
+    convs = [e for e in kernels if "conv2d_int8" in e.key]
+    log("profile", f"{config}: conv2d_int8 "
+        f"{sum(e.self_device_time_total for e in convs) / 1e3:.3f} ms "
+        f"x{sum(e.count for e in convs)} of the device busy time")
     if busy_ms <= 0:
         raise AssertionError("the profiler saw no device time")
 

@@ -27,11 +27,20 @@ lav_tpu's two default-off forms run through the same kernel:
     r"^upconv\\d$")`): an int8 `layers.ConvTranspose2d` as the equivalent
     conv over its input dilated by the stride, with the flipped kernel and
     padding (k-1-p, k-1-p+output_padding) per axis.
+
+The kernel takes every form as a phase plan (`conv_plan`): per axis, the
+conv over the dilated input splits into output phases, each an ordinary
+conv of the undilated input over only the taps that land on real pixels,
+so a transposed conv walks no inserted zero.  `conv_tiles` picks the
+launch's tile.  Both are pure functions of the shapes, held on the CPU by
+`tests/test_torch_conv_plan.py`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 import re
 
 import torch
@@ -194,16 +203,6 @@ def _pads(padding):
     return tuple((p, p) if isinstance(p, int) else tuple(p) for p in padding)
 
 
-def _out_hw(H, W, KH, KW, stride, padding, dilation, lhs_dilation):
-    """Output size over the input dilated by `lhs_dilation` and padded by
-    `padding` ((top, bottom), (left, right))."""
-    out = []
-    for n, k, s, (p0, p1), d, l in zip((H, W), (KH, KW), stride, padding,
-                                       dilation, lhs_dilation):
-        out.append(((n - 1) * l + 1 + p0 + p1 - d * (k - 1) - 1) // s + 1)
-    return tuple(out)
-
-
 # the plain version sums in f32 over input-channel chunks small enough that
 # every partial sum is an integer below 2^24 (127 * 127 * taps * chunk),
 # so each chunk's conv is exact in any summation order; chunks add in int32
@@ -244,6 +243,93 @@ def conv2d_int8_plain(xq, w_int8, w_scale, s_x, b, stride, padding,
     return y.to(out_dtype).permute(0, 2, 3, 1)
 
 
+# csrc/conv2d_int8.cu's limits: phases and taps per axis, bytes of K per
+# step
+MAX_PHASES = 8
+MAX_TAPS = 8
+BK = 128
+# csrc/conv2d_int8.cu's tiles, (BM, BN) -> stages of its ring (`Stages`)
+TILES = {(256, 64): 5, (128, 128): 6, (128, 64): 4}
+# an O = 64 conv with more K steps than this takes the 256 x 64 tile
+LONG_K = 64
+
+
+def axis_plan(n, k, stride, pads, dilation, lhs):
+    """One axis of the conv over the input of size n dilated by `lhs`,
+    padded by pads (before, after), with kernel size k, stride and kernel
+    dilation -> (out, P, s', phases): output r + P*j of phase r (j <
+    n_out) sums taps t, each reading input row j*s' + off, over
+    phases = ((n_out, ((t, off), ...)), ...) for r in range(P)."""
+    out = ((n - 1) * lhs + 1 + pads[0] + pads[1] - dilation * (k - 1) - 1) \
+        // stride + 1
+    g = math.gcd(stride, lhs)
+    P = lhs // g
+    phases = []
+    for r in range(P):
+        pos = [r * stride - pads[0] + t * dilation for t in range(k)]
+        taps = tuple((t, u // lhs) for t, u in enumerate(pos)
+                     if u % lhs == 0)
+        phases.append((max(0, -(-(out - r) // P)), taps))
+    return out, P, stride // g, tuple(phases)
+
+
+def conv_tiles(m, o, phases, ksteps, sms=132):
+    """(BM, BN) of the launch for m outputs (the largest phase's), o
+    channels and ksteps steps of K: 128 x 128 where O > 64, 256 x 64 where
+    O <= 64 and K is long (> LONG_K steps: B is re-read per m-tile), if its
+    grid of m-tiles x n-tiles x phases fills `sms` SMs; else 128 x 64 (two
+    blocks an SM)."""
+    big = (128, 128) if o > 64 else (256, 64) if ksteps > LONG_K else None
+    tile = big if big and -(-m // big[0]) * -(-o // big[1]) * phases >= sms \
+        else (128, 64)
+    assert tile in TILES
+    return tile
+
+
+def conv_plan(N, H, W, C, O, KH, KW, stride, padding, dilation,
+              lhs_dilation, sms=132):
+    """The launch plan of kernel `conv2d_int8`: {"axes": (axis_plan of y,
+    of x), "tile": (BM, BN)}."""
+    pads = _pads(padding)
+    axes = tuple(axis_plan(n, k, s, p, d, l) for n, k, s, p, d, l in zip(
+        (H, W), (KH, KW), stride, pads, dilation, lhs_dilation))
+    m = N * max(ny for ny, _ in axes[0][3]) * max(nx for nx, _ in axes[1][3])
+    kbytes = max(len(ty) for _, ty in axes[0][3]) * max(
+        len(tx) for _, tx in axes[1][3]) * C
+    tile = conv_tiles(m, O, axes[0][1] * axes[1][1], -(-kbytes // BK), sms)
+    return {"axes": axes, "tile": tile}
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_ints(N, H, W, C, O, KH, KW, stride, padding, dilation,
+               lhs_dilation, sms):
+    """(OH, OW, the plan as csrc/conv2d_int8.cu's `Plan`: 303 C ints), or
+    raise if the kernel's tables cannot hold it."""
+    plan = conv_plan(N, H, W, C, O, KH, KW, stride, padding, dilation,
+                     lhs_dilation, sms)
+    (OH, P_y, s_y, ys), (OW, P_x, s_x, xs) = plan["axes"]
+    if max(P_y, P_x) > MAX_PHASES or any(
+            len(taps) > MAX_TAPS for _, taps in ys + xs):
+        raise ValueError(f"conv2d_int8: {P_y}x{P_x} phases or more than "
+                         f"{MAX_TAPS} taps per phase and axis (kernel "
+                         f"{KH}x{KW}, input dilation {lhs_dilation})")
+    ints = [N, H, W, C, O, KH, KW, OH, OW, P_y, P_x, s_y, s_x, *plan["tile"]]
+    for phases in (ys, xs):
+        pad = [(0, ())] * (MAX_PHASES - len(phases))
+        rows = list(phases) + pad
+        ints += [n for n, _ in rows] + [len(t) for _, t in rows]
+        for col in (0, 1):   # kernel index, then input offset, of each tap
+            for _, taps in rows:
+                ints += [tap[col] for tap in taps] + [0] * (MAX_TAPS
+                                                         - len(taps))
+    return OH, OW, (ctypes.c_int * len(ints))(*ints)
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 _ENTRY = {torch.bfloat16: native.ENTRIES["conv2d_int8_bf16"],
           torch.float32: native.ENTRIES["conv2d_int8_f32"]}
 
@@ -262,21 +348,25 @@ def _refuse(xq, w_int8, tensors, out_dtype):
         raise TypeError(f"conv2d_int8: output {out_dtype} (bf16/f32)")
     raise ValueError(f"conv2d_int8: x {tuple(xq.shape)}, w "
                      f"{tuple(w_int8.shape)}; NHWC and OHWI, C must match "
-                     "and be a multiple of 32")
+                     "and be a multiple of 16")
 
 
 def conv2d_int8_nhwc(xq, w_int8, w_scale, s_x, b, stride, padding, dilation,
                      out_dtype, lhs_dilation=(1, 1)):
     """Kernel `conv2d_int8` (contract of `conv2d_int8_plain`); stride,
     dilation and lhs_dilation are (h, w) pairs, padding (h, w) or ((top,
-    bottom), (left, right)).  CPU tensors take the plain version."""
+    bottom), (left, right)).  CPU tensors take the plain version.  On CUDA
+    C is a multiple of 16, and the kernel's tables hold at most MAX_PHASES
+    (8) output phases per axis (lhs_dilation / gcd(stride, lhs_dilation))
+    and MAX_TAPS (8) taps per phase and axis (at most 8 for a direct conv,
+    about k / lhs_dilation for a transposed one): a larger conv raises."""
     dev = xq.get_device()
     entry = _ENTRY.get(out_dtype)
     # one test on the fast path; _refuse says what is wrong
     if not (xq.is_cuda and entry is not None and xq.dtype is torch.int8
             and w_int8.dtype is torch.int8 and xq.dim() == 4
             and w_int8.dim() == 4 and w_int8.shape[3] == xq.shape[3]
-            and xq.shape[3] % 32 == 0 and w_int8.get_device() == dev
+            and xq.shape[3] % 16 == 0 and w_int8.get_device() == dev
             and w_scale.get_device() == dev and s_x.get_device() == dev
             and (b is None or b.get_device() == dev)):
         if xq.device.type == "cpu":
@@ -286,11 +376,13 @@ def conv2d_int8_nhwc(xq, w_int8, w_scale, s_x, b, stride, padding, dilation,
         _refuse(xq, w_int8, [w_int8, w_scale, s_x, b], out_dtype)
     N, H, W, C = xq.shape
     O, KH, KW, _ = w_int8.shape
-    pads = _pads(padding)
-    OH, OW = _out_hw(H, W, KH, KW, stride, pads, dilation, lhs_dilation)
-    if OH < 1 or OW < 1 or min(lhs_dilation) < 1:
-        raise ValueError(f"conv2d_int8: empty output {OH}x{OW} or "
-                         f"lhs_dilation {lhs_dilation}")
+    if min(lhs_dilation) < 1:
+        raise ValueError(f"conv2d_int8: lhs_dilation {lhs_dilation}")
+    OH, OW, plan = _plan_ints(N, H, W, C, O, KH, KW, tuple(stride),
+                              _pads(padding), tuple(dilation),
+                              tuple(lhs_dilation), _sm_count(dev))
+    if OH < 1 or OW < 1:
+        raise ValueError(f"conv2d_int8: empty output {OH}x{OW}")
     xq = xq.contiguous()
     w_scale = w_scale.float().contiguous()
     s_x = s_x.float().reshape(1).contiguous()
@@ -300,12 +392,8 @@ def conv2d_int8_nhwc(xq, w_int8, w_scale, s_x, b, stride, padding, dilation,
         raise ValueError("conv2d_int8: x and w must be contiguous and "
                          "16-byte aligned")
     out = xq.new_empty((N, OH, OW, O), dtype=out_dtype)
-    geom = (ctypes.c_int * 17)(N, H, W, C, O, KH, KW, stride[0], stride[1],
-                               pads[0][0], pads[1][0], dilation[0],
-                               dilation[1], lhs_dilation[0],
-                               lhs_dilation[1], OH, OW)
     native.launch(entry, dev, xq.data_ptr(), w_int8.data_ptr(),
                   w_scale.data_ptr(), s_x.data_ptr(),
                   None if bias is None else bias.data_ptr(), out.data_ptr(),
-                  geom)
+                  plan)
     return out
