@@ -14,7 +14,11 @@ Phases, each printing its own line and raising on failure:
           kernel crop_shared_q8 (int8 epilogue) on an f32 source there and
           on a bf16 source at the production shapes (16 egos); and kernel
           crop_shared_q8_s2d (space-to-depth int8 crops) at the production
-          shapes, equal to crop_shared_q8's crops reshuffled
+          shapes, equal to crop_shared_q8's crops reshuffled; both int8
+          forms also on zoom-out crops (2 source pixels an output pixel,
+          45 degrees and others) and on 90x90 crops (partial 16x16
+          tiles); host-paced and device-only times and host us per call
+          of the int8 forms
   pillar  kernel pillar_scatter_max against its plain version at the
           agent's shapes (4 x 49152 points, 64 channels, 4 x 102401
           pillars) with masked points, duplicate ids, empty pillars and
@@ -36,7 +40,9 @@ Phases, each printing its own line and raising on failure:
           host-paced ms, host us per call, useful TOPS and share of the
           int8 peak, and the work walked over the useful work; beside it
           torch._int_mm for a 1x1 conv (the same int32 sums), else cuDNN's
-          bf16 conv (F.conv_transpose2d for the upconvs)
+          bf16 conv (F.conv_transpose2d for the upconvs); then two convs
+          on no path, exact: C = 24 (padded to 32 by the wrapper) and a
+          9x9 kernel (9 taps a phase and axis)
   gather  kernel take_along_rows (the gather probe, scripts/exp_gather.py)
           at the probe's six (S, L, dtype) cases; must be exact, and give
           0 for an index outside [0, S); host-paced and device-only times
@@ -263,17 +269,21 @@ def phase_crop(ctx):
         ms = cuda_ms(torch, lambda: crop_shared(src, grid))
         plain_ms = cuda_ms(torch, lambda: grid_sample_shared(src, grid),
                            iters=3, warmup=1)
-        # library yardstick, timed only and in f32 only: F.grid_sample per
-        # ego on the source expanded over its K crops (a stride-0 batch,
-        # native kernel, NCHW output)
+        # library yardstick, timed only: F.grid_sample per ego on the
+        # source expanded over its K crops (a stride-0 batch, native
+        # kernel, NCHW output), in the source's dtype, which F.grid_sample
+        # wants the grid in too (on the CPU in f32 only: bf16 with a
+        # stride-0 source crashed there)
         lib_ms = None
-        if dtype == torch.float32:
+        if dtype == torch.float32 or dev.type == "cuda":
             nchw = src.permute(0, 3, 1, 2)
+            lib_grid = grid.to(dtype)
             with torch.backends.cudnn.flags(enabled=False):
                 lib_ms = cuda_ms(torch, lambda: [
-                    F.grid_sample(nchw[b:b + 1].expand(K, C, H, W), grid[b],
-                                  mode="bilinear", padding_mode="zeros",
-                                  align_corners=True) for b in range(B)])
+                    F.grid_sample(nchw[b:b + 1].expand(K, C, H, W),
+                                  lib_grid[b], mode="bilinear",
+                                  padding_mode="zeros", align_corners=True)
+                    for b in range(B)])
         esz = src.element_size()
         nbytes = (src.numel() * esz + grid.numel() * 4
                   + B * K * Ho * Wo * C * esz)
@@ -303,18 +313,40 @@ def phase_crop(ctx):
     del src, grid
     q8 = _crop_q8(torch, ctx, dev)
     res["q8"], res["q8_s2d"] = q8["q8"], q8["s2d"]
+    res["float32"].update({f"bf16_{k}": v for k, v in res["bfloat16"].items()
+                           if k != "bound_by"})
     ctx["crop"] = res
+
+
+def _q8_check(torch, label, out, ref, far=None):
+    """An int8 crop against its plain version: at most CROP_Q8_STEPS on at
+    most CROP_Q8_FRACTION of the values, and the crop wholly outside
+    (index `far` of dim 1) exactly 0; returns the largest step."""
+    diff = (out.int() - ref.int()).abs()
+    err = int(diff.max())
+    frac = float((diff > 0).float().mean())
+    far_max = 0 if far is None else int(out[:, far].abs().max())
+    log("crop", f"{label}: {tuple(out.shape)}, max step diff {err} (tol "
+        f"{CROP_Q8_STEPS}), values off {frac:.2e} (tol {CROP_Q8_FRACTION})"
+        + ("" if far is None else f", far crop max |out| {far_max}"))
+    if out.dtype != torch.int8 or err > CROP_Q8_STEPS or \
+            frac > CROP_Q8_FRACTION or far_max != 0:
+        raise AssertionError(f"{label} disagrees with plain")
+    return err
 
 
 def _crop_q8(torch, ctx, dev):
     """crop_shared_q8: an f32 source at the f32 agent's shapes (the f32 +
     int8 configuration), then a bf16 source at the production shapes,
-    where crop_shared_q8_s2d is checked too; both timed there.  x_scale =
-    absmax / 127 so that the int8 range is used."""
+    where crop_shared_q8_s2d is checked too; host-paced in turns,
+    device-only and host us per call.  Then both int8 forms on a zoom-out
+    crop and on 90x90 crops.  x_scale = absmax / 127 so that the int8
+    range is used."""
     from lav_tpu_torch.core.warp import (
         crop_shared, grid_sample_shared_q8, inverse_scale, space_to_depth,
     )
 
+    f32 = {}
     for dtype, E in ((torch.float32, NUM_EGO),
                      (torch.bfloat16, NUM_EGO_PROD)):
         src, grid = _agent_crop_inputs(torch, dev, dtype, E=E)
@@ -322,34 +354,34 @@ def _crop_q8(torch, ctx, dev):
         out = crop_shared(src, grid, q8_x_scale=x_scale)
         ref = grid_sample_shared_q8(src, grid, inverse_scale(x_scale))
         torch.cuda.synchronize()
-        diff = (out.int() - ref.int()).abs()
-        err = int(diff.max())
-        frac = float((diff > 0).float().mean())
-        far = int(out[:, 1].abs().max())
         name = str(dtype).replace("torch.", "")
-        log("crop", f"q8 ({name} source, {E} egos): max step diff {err} "
-            f"(tol {CROP_Q8_STEPS}), values off {frac:.2e} (tol "
-            f"{CROP_Q8_FRACTION}), far crop max |out| {far}")
-        if out.dtype != torch.int8 or err > CROP_Q8_STEPS or \
-                frac > CROP_Q8_FRACTION or far != 0:
-            raise AssertionError(f"crop_shared_q8 {name} disagrees with "
-                                 "plain")
+        err = _q8_check(torch, f"q8 ({name} source, {E} egos)", out, ref,
+                        far=1)
+        if dtype == torch.float32:
+            def run():
+                crop_shared(src, grid, q8_x_scale=x_scale)
+            f32 = dict(f32_max_abs_err=float(err), f32_ms=cuda_ms(torch, run),
+                       f32_device_ms=device_ms(torch, run),
+                       f32_bound_ms=bound_ms(src.numel() * 4 + grid.numel()
+                                             * 4 + out.numel())[0])
+            log("crop", f"q8 ({name} source, {E} egos): kernel "
+                f"{f32['f32_ms']:.4f} ms host-paced, "
+                f"{f32['f32_device_ms']:.4f} ms device-only, bound "
+                f"{f32['f32_bound_ms']:.4f} ms (bytes)")
+            del src, grid, out, ref
     # the space-to-depth form (LAV_S2D_CROPS=1) on the same production
     # inputs: the same sums and rounding, only the store moves, so it must
     # equal the q8 kernel's crops reshuffled exactly
     s2d = crop_shared(src, grid, q8_x_scale=x_scale, s2d=True)
     torch.cuda.synchronize()
     same = torch.equal(s2d, space_to_depth(out))
-    diff = (s2d.int() - space_to_depth(ref).int()).abs()
-    err_s2d = int(diff.max())
-    frac_s2d = float((diff > 0).float().mean())
-    log("crop", f"q8 s2d ({NUM_EGO_PROD} egos): {tuple(s2d.shape)}, equal "
-        f"to crop_shared_q8 reshuffled {same}; against plain max step "
-        f"diff {err_s2d} (tol {CROP_Q8_STEPS}), values off {frac_s2d:.2e} "
-        f"(tol {CROP_Q8_FRACTION})")
-    if not same or err_s2d > CROP_Q8_STEPS or frac_s2d > CROP_Q8_FRACTION:
+    log("crop", f"q8 s2d ({NUM_EGO_PROD} egos): equal to crop_shared_q8 "
+        f"reshuffled {same}")
+    err_s2d = _q8_check(torch, f"q8 s2d ({NUM_EGO_PROD} egos)", s2d,
+                        space_to_depth(ref))
+    if not same:
         raise AssertionError("crop_shared_q8_s2d disagrees")
-    del diff, ref
+    del ref
     inv = inverse_scale(x_scale)
     B, H, W, C = src.shape
     _, K, Ho, Wo, _ = grid.shape
@@ -357,26 +389,77 @@ def _crop_q8(torch, ctx, dev):
     flops = B * K * Ho * Wo * (10 * C + 24)
     bms, by = bound_ms(nbytes, flops)
     res = {}
+    run = {form: (lambda form=form: crop_shared(
+        src, grid, q8_x_scale=x_scale, s2d=form == "s2d"))
+        for form in ("q8", "s2d")}
     # in turns, q8 then s2d then s2d then q8, so that both see one card
     t = {"q8": [], "s2d": []}
     for form in ("q8", "s2d", "s2d", "q8"):
-        t[form].append(cuda_ms(torch, lambda: crop_shared(
-            src, grid, q8_x_scale=x_scale, s2d=form == "s2d")))
+        t[form].append((cuda_ms(torch, run[form]),
+                        device_ms(torch, run[form])))
     plain = {"q8": lambda: grid_sample_shared_q8(src, grid, inv),
              "s2d": lambda: space_to_depth(grid_sample_shared_q8(src, grid,
                                                                  inv))}
     for form, e in (("q8", err), ("s2d", err_s2d)):
-        ms = statistics.mean(t[form])
+        ms = statistics.mean(h for h, _ in t[form])
+        dev_ms = statistics.mean(d for _, d in t[form])
+        hus = host_us(torch, run[form], n=50)
         plain_ms = cuda_ms(torch, plain[form], iters=1, warmup=1)
-        log("crop", f"{form}: kernel {ms:.4f} ms ({t[form][0]:.4f}, "
-            f"{t[form][1]:.4f}), plain {plain_ms:.4f} ms, no library call, "
-            f"bound {bms:.4f} ms ({by}, {nbytes / 1e6:.1f} MB) on "
-            f"{ctx.get('smi', '?')}")
-        res[form] = dict(max_abs_err=float(e), ms=ms, plain_ms=plain_ms,
-                         library_ms=None, bound_ms=bms, bound_by=by)
+        log("crop", f"{form}: kernel host-paced {ms:.4f} ms ("
+            f"{t[form][0][0]:.4f}, {t[form][1][0]:.4f}), device-only "
+            f"{dev_ms:.4f} ms ({t[form][0][1]:.4f}, {t[form][1][1]:.4f}), "
+            f"host {hus:.1f} us a call, plain {plain_ms:.4f} ms, no library "
+            f"call (none crops and quantizes), bound {bms:.4f} ms ({by}, "
+            f"{nbytes / 1e6:.1f} MB) on {ctx.get('smi', '?')}")
+        res[form] = dict(max_abs_err=float(e), ms=ms, device_ms=dev_ms,
+                         host_us=hus, plain_ms=plain_ms, library_ms=None,
+                         bound_ms=bms, bound_by=by)
+    res["q8"].update(f32)
     del src, grid, out, s2d
     torch.cuda.empty_cache()
+    _crop_q8_shapes(torch, dev)
     return res
+
+
+def _crop_q8_shapes(torch, dev):
+    """Both int8 forms off the agent's shapes, bf16 source 160x160x384:
+    zoom-out crops (crop_size 192 sampled at 96x96, 2 source pixels an
+    output pixel, at 45 degrees and others: a tile's taps spread over
+    four times the agent's source window) and 90x90 crops (Ho, Wo not a
+    multiple of the kernel's 16x16 tile: partial tiles; even, for s2d)."""
+    from lav_tpu_torch.core.warp import (
+        affine_grid, crop_shared, crop_theta, grid_sample_shared_q8,
+        inverse_scale, space_to_depth,
+    )
+
+    g = torch.Generator(device="cpu").manual_seed(11)
+    src = torch.randn((2, 160, 160, 384), generator=g).to(dev,
+                                                          torch.bfloat16)
+    x_scale = (src.float().abs().max() / 127.0).reshape(())
+    oris = torch.tensor([[math.pi / 4, 0.3, -2.0, math.pi / 2],
+                         [math.pi / 4, 1.2, 3.0, 0.0]])
+    locs = torch.tensor([[[0.0, 0.0], [5.0, -3.0], [38.0, -39.0],
+                          [1e3, -1e3]],
+                         [[2.0, 1.0], [-6.0, 4.0], [0.0, 10.0],
+                          [-20.0, 0.0]]])
+    for label, crop, size in (("zoom-out", 192, 96), ("90x90", 90, 90)):
+        theta = crop_theta(locs.reshape(-1, 2), oris.reshape(-1), 160, 160,
+                           2.0, crop, 0.0, 0.75)
+        grid = affine_grid(theta, size, size).reshape(2, 4, size, size, 2)
+        grid = grid.to(dev).contiguous()
+        out = crop_shared(src, grid, q8_x_scale=x_scale)
+        ref = grid_sample_shared_q8(src, grid, inverse_scale(x_scale))
+        s2d = crop_shared(src, grid, q8_x_scale=x_scale, s2d=True)
+        torch.cuda.synchronize()
+        _q8_check(torch, f"q8 {label}", out, ref)
+        _q8_check(torch, f"q8 s2d {label}", s2d, space_to_depth(ref))
+        same = torch.equal(s2d, space_to_depth(out))
+        log("crop", f"q8 s2d {label}: equal to q8 reshuffled {same}")
+        if not same:
+            raise AssertionError(f"crop_shared_q8_s2d {label} disagrees")
+        del grid, out, ref, s2d
+    del src
+    torch.cuda.empty_cache()
 
 
 def phase_pillar(ctx):
@@ -672,6 +755,8 @@ def _conv_int8_shapes():
 
 
 INT8_CONVS_PER_TICK = 39   # the committed calibration JSON's keys
+# (batch, H, W, C, O, k, padding) of two convs on no path
+OFF_PATH_CONVS = ((16, 40, 40, 24, 64, 3, 1), (4, 40, 40, 64, 64, 9, 4))
 INT8_UPCONVS = 3           # LAV_INT8_UPCONV=1: backbone upconv1-3
 
 
@@ -932,6 +1017,17 @@ def phase_conv_int8(ctx):
                             variants_cudnn_bf16_device_ms=var[
                                 "cudnn_device_ms"])
     ctx["conv_shapes"] = per_shape
+    # convs on no path, which lav_tpu's s8 conv computes: C = 24 (the
+    # wrapper pads it to 32 with zero channels) and 9 taps a phase and axis
+    for N, H, W, C, O, k, pad in OFF_PATH_CONVS:
+        _, out, err = _conv_case(torch, dev, g, N, H, W, C, O, k, 1,
+                                 ((pad, pad), (pad, pad)), 1)
+        log("conv_int8", f"off the paths: {N}x{H}x{W}x{C} -> {O} k{k} pad "
+            f"{pad}: exact (f32 + bias and bf16), output "
+            f"{tuple(out.shape)}, not in the tick totals")
+        worst = max(worst, err)
+        del out
+    ctx["conv_int8"]["max_abs_err"] = worst
     log("conv_int8", f"one variants tick ({INT8_CONVS_PER_TICK + INT8_UPCONVS}"
         f" convs, s2d conv1): kernel host-paced {var['ms']:.3f} ms, "
         f"device-only {var['device_ms']:.3f} ms, plain {var['plain_ms']:.3f}"

@@ -24,11 +24,11 @@
 // axis of about k/s taps each, so no zero of the dilated input is walked.
 // Phase (ry, rx) is blockIdx.z: one launch per conv.  The weight is read
 // in place, each tap (ky, kx) taken from the plan, so no derived weight
-// is kept.  Limits: C a multiple of 16, at most kMaxP = 8 phases per axis
-// (l / gcd(s, l)) and kMaxT = 8 taps per phase and axis (a direct conv of
-// kernel size up to 8, a transposed conv of up to about 8 taps per
-// stride); the wrapper raises on a larger conv, the launch returns
-// cudaErrorInvalidValue.
+// is kept.  Limits: C a multiple of 16 (the wrapper pads other C with
+// zero channels), at most kMaxP = 16 phases per axis (l / gcd(s, l)) and
+// kMaxT = 16 taps per phase and axis (a direct conv of kernel size up to
+// 16, a transposed conv of up to about 16 taps per stride); the wrapper
+// raises on a larger conv, the launch returns cudaErrorInvalidValue.
 //
 // Epilogue, bit for bit the plain version's: y = float(acc) * (s_x *
 // w_scale[o]), the product s_x * w_scale[o] rounded first, then + b[o],
@@ -71,24 +71,29 @@ namespace {
 
 constexpr int kThreads = 256;  // two warpgroups
 constexpr int kBK = 128;       // bytes of K per step: one swizzled row
-constexpr int kMaxP = 8;       // phases per axis
-constexpr int kMaxT = 8;       // taps per phase and axis
+constexpr int kMaxP = 16;      // phases per axis
+constexpr int kMaxT = 16;      // taps per phase and axis
 
 // one axis of the phase plan
 struct Axis {
   int n_out[kMaxP];       // outputs of phase r
   int ntaps[kMaxP];       // its taps
-  int k[kMaxP][kMaxT];    // kernel index of each tap
-  int off[kMaxP][kMaxT];  // input offset of each tap
+  // each tap's input offset * 65536 + its kernel index (0 <= k < 65536,
+  // |offset| < 32768)
+  int tap[kMaxP][kMaxT];
 };
+__device__ __forceinline__ int tap_k(int t) { return t & 0xffff; }
+__device__ __forceinline__ int tap_off(int t) { return t >> 16; }
 
 // N, H, W, C, O, KH, KW, OH, OW, phases (ph, pw), phase strides (sh, sw),
-// tile (bm, bn), then the y and x axes: 303 ints (nn/quant.py _plan_ints)
+// tile (bm, bn), then the y and x axes: 591 ints (nn/quant.py
+// _plan_ints), 2364 bytes, passed by value well inside the 4 KB of a
+// kernel's parameters
 struct Plan {
   int N, H, W, C, O, KH, KW, OH, OW, ph, pw, sh, sw, bm, bn;
   Axis y, x;
 };
-static_assert(sizeof(Plan) == 303 * sizeof(int), "plan layout");
+static_assert(sizeof(Plan) == 591 * sizeof(int), "plan layout");
 
 // the tiles, BM x BN outputs with a ring of Stages<BM, BN>::k stages;
 // nn/quant.py TILES lists the same (BM, BN) -> stages, and conv_tiles
@@ -248,10 +253,11 @@ __global__ void __launch_bounds__(kThreads, (Tile<BM, BN>::kBlocks))
   __shared__ float s_sc[BN], s_b[BN];
   const int tid = threadIdx.x;
   if (tid < kMaxT) {
-    s_dy[tid] = p.y.off[ry][tid];
-    s_wy[tid] = p.y.k[ry][tid] * p.KW * p.C;
-    s_dx[tid] = p.x.off[rx][tid];
-    s_wx[tid] = p.x.k[rx][tid] * p.C;
+    const int vy = p.y.tap[ry][tid], vx = p.x.tap[rx][tid];
+    s_dy[tid] = tap_off(vy);
+    s_wy[tid] = tap_k(vy) * p.KW * p.C;
+    s_dx[tid] = tap_off(vx);
+    s_wx[tid] = tap_k(vx) * p.C;
   }
   if (tid < BN) {
     const int o = n0 + tid < p.O ? n0 + tid : p.O - 1;
@@ -500,7 +506,7 @@ int launch(const void* x, const void* w, const void* w_scale,
 
 }  // namespace
 
-// plan: the phase plan and tile of nn/quant.py _plan_ints (303 ints)
+// plan: the phase plan and tile of nn/quant.py _plan_ints (591 ints)
 extern "C" int conv2d_int8_bf16(const void* x, const void* w,
                                 const void* w_scale, const void* x_scale,
                                 const void* bias, void* out, const int* plan,

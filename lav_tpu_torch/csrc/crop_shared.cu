@@ -38,15 +38,44 @@
 // conv2d_int8_s2d).  The sums and the rounding are crop_shared_q8's; only
 // the store moves: crop pixel (y, x), channel c goes to
 // out[b, k, y/2, x/2, ((y%2)*2 + x%2)*C + c], the (dy, dx, c) channel
-// order of warp_pallas.py:250-253.  Ho and Wo must be even.  The TPU
-// kernel regrouped phases inside its matmul tiles; here a thread's
-// 16-byte vector simply lands C bytes further along its pixel's 4C row,
-// so the bytes moved are K1-q8's.
+// order of warp_pallas.py:250-253.  Ho and Wo must be even.
+//
+// The int8 forms over 16-byte source vectors run their own kernel,
+// crop_q8_tiled; the plain forms and the scalar path keep
+// crop_shared_kernel.  Measured on the card at the production shapes,
+// crop_shared_kernel's int8 forms were bound by their instructions, not
+// by their bytes (PERF.md): without their stores they ran 4% faster,
+// reading one tap instead of four 19% faster, with every tap from one
+// fixed address 26%.  Each thread made 8 output bytes of a pixel, so the
+// pixel's grid read and weights (and for s2d the store's row division)
+// were repeated by each of its 48 threads, and rintf and the cast to
+// int8 are conversions, 16 a clock on an SM.  crop_q8_tiled:
+//  * one block makes a kTile x kTile tile of output pixels.  Its setup
+//    gives each pixel one thread, which computes the weights, the tap
+//    origin and the output offset into shared memory once for all the
+//    channels;
+//  * then 8 threads a pixel (kPieces), each a 16-byte source piece of
+//    every tap and an int8 store of the piece, chunk by chunk of 8 pieces,
+//    kVisit chunks a visit, so that the block's warps read a few chunks
+//    of the tile's source window at a time and reuse its lines from L1.
+//    The tile is 2-D, so vertical neighbours share taps there too;
+//  * the quantization clamps first and rounds by adding 1.5 * 2^23
+//    (q8_bits), with no conversion instruction, and bf16 widens by one
+//    bit operation (widen);
+//  * 4 blocks of 256 threads an SM (64 registers a thread) hide the
+//    latency of the taps that miss L1.
+// Staging the tile's source window through shared memory with cp.async
+// (the window per source row, 1.1 source pixels an output pixel) was
+// measured too and gained nothing: it held two blocks an SM and spent
+// instructions on the copies (PERF.md).  Weights, FMA chain and rounding
+// are crop_shared_kernel's, written the same way, so the int8 output is
+// that kernel's exactly (checked on the card).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <climits>
 #include <type_traits>
 
 namespace {
@@ -159,6 +188,178 @@ int launch(const void* src, const void* grid, void* out, const void* inv_s,
   return (int)cudaGetLastError();
 }
 
+// ---- crop_q8_tiled: the int8 forms over 16-byte source vectors ----
+
+constexpr int kTile = 16;      // output tile, kTile x kTile pixels
+constexpr int kQThreads = 256;
+constexpr int kPieces = 8;     // threads a pixel, a 16-byte piece each
+constexpr int kSlots = kQThreads / kPieces;   // pixels a pass
+constexpr int kTilePix = kTile * kTile;
+constexpr int kPix = kTilePix / kSlots;       // pixels a thread
+constexpr int kQBlocks = 4;    // blocks an SM (64 registers a thread)
+constexpr int kVisit = 2;      // chunks a pixel's visit makes
+static_assert(kSlots * kPix == kTilePix, "whole pixels a thread");
+static_assert(kQThreads == kTilePix, "a thread a pixel in the setup");
+
+// quantize(acc, inv) as the low byte of the result: clamping first keeps
+// the value within +-127, where adding 1.5 * 2^23 rounds it to an
+// integer half to even (the f32 spacing there is 1) and leaves it, two's
+// complement, in the low mantissa bits.  A NaN clamps to -127 in both.
+__device__ __forceinline__ uint32_t q8_bits(float acc, float inv) {
+  const float y = fminf(fmaxf(__fmul_rn(acc, inv), -127.0f), 127.0f);
+  return __float_as_uint(__fadd_rn(y, 12582912.0f));
+}
+
+// a piece's values as f32: bf16 is the high half of an f32, so one bit
+// operation each (__bfloat162float's shift went through a byte permute
+// and a multiply for the odd elements)
+__device__ __forceinline__ void widen(const Vec<float, 4>& v, float (&f)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) f[i] = v.v[i];
+}
+__device__ __forceinline__ void widen(const Vec<__nv_bfloat16, 8>& v,
+                                      float (&f)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(&v);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// the V int8 values of one piece: the f32 sums written as
+// crop_shared_kernel writes them (the compiler contracts them to FMAs the
+// same way), quantized, packed 4 a word.  The taps come by value: one
+// 16-byte load each
+template <typename T, int V>
+__device__ __forceinline__ void q8_piece(const Vec<T, V> a,
+                                         const Vec<T, V> b,
+                                         const Vec<T, V> c,
+                                         const Vec<T, V> d,
+                                         const float (&w)[4], float inv,
+                                         int8_t* dst) {
+  float fa[V], fb[V], fc[V], fd[V];
+  widen(a, fa);
+  widen(b, fb);
+  widen(c, fc);
+  widen(d, fd);
+  uint32_t q[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    float acc = w[0] * fa[i];
+    acc += w[1] * fb[i];
+    acc += w[2] * fc[i];
+    acc += w[3] * fd[i];
+    q[i] = q8_bits(acc, inv);
+  }
+  uint32_t word[V / 4];
+#pragma unroll
+  for (int i = 0; i < V; i += 4)
+    word[i / 4] = __byte_perm(__byte_perm(q[i], q[i + 1], 0x0040),
+                              __byte_perm(q[i + 2], q[i + 3], 0x0040),
+                              0x5410);
+  if constexpr (V == 8)
+    *reinterpret_cast<uint2*>(dst) = make_uint2(word[0], word[1]);
+  else
+    *reinterpret_cast<uint32_t*>(dst) = word[0];
+}
+
+template <typename T, bool S2D>
+__global__ void __launch_bounds__(kQThreads, kQBlocks)
+    crop_q8_tiled(const T* __restrict__ src, const float* __restrict__ grid,
+                  int8_t* __restrict__ out, const float* __restrict__ inv_s,
+                  int H, int W, int C, int K, int Ho, int Wo, int tiles_x) {
+  constexpr int V = 16 / sizeof(T);  // channels of a piece
+  constexpr int CC = kPieces * V;    // channels of a chunk
+  __shared__ float4 pw[kTilePix];    // each pixel's weights
+  // each pixel's top-left tap (a source element) and output offset (< 0:
+  // past the crop's last row or column)
+  __shared__ int2 pq[kTilePix];
+
+  const float inv = *inv_s;
+  const int tid = threadIdx.x, part = tid % kPieces, slot = tid / kPieces;
+  const int tyi = blockIdx.x / tiles_x;
+  const int ty0 = tyi * kTile, tx0 = (blockIdx.x - tyi * tiles_x) * kTile;
+  const T* s = src + (size_t)blockIdx.z * H * W * C;
+  const size_t crop = (size_t)blockIdx.z * K + blockIdx.y;
+  const float* g = grid + crop * Ho * Wo * 2;
+  int8_t* o = out + crop * Ho * Wo * C;
+
+  {  // thread tid: pixel tid of the tile
+    const int y = ty0 + tid / kTile, x = tx0 + tid % kTile;
+    float4 wv = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    int2 q = make_int2(0, -1);
+    if (y < Ho && x < Wo) {
+      const int p = y * Wo + x;
+      const float ix = (g[2 * p] + 1.0f) * 0.5f * (float)(W - 1);
+      const float iy = (g[2 * p + 1] + 1.0f) * 0.5f * (float)(H - 1);
+      const float x0f = fminf(fmaxf(floorf(ix), 0.0f), (float)(W - 2));
+      const float y0f = fminf(fmaxf(floorf(iy), 0.0f), (float)(H - 2));
+      const float wy0 = fmaxf(0.0f, 1.0f - fabsf(iy - y0f));
+      const float wy1 = fmaxf(0.0f, 1.0f - fabsf(iy - (y0f + 1.0f)));
+      const float wx0 = fmaxf(0.0f, 1.0f - fabsf(ix - x0f));
+      const float wx1 = fmaxf(0.0f, 1.0f - fabsf(ix - (x0f + 1.0f)));
+      wv = make_float4(to_f(from_f<T>(__fmul_rn(wy0, wx0))),
+                       to_f(from_f<T>(__fmul_rn(wy0, wx1))),
+                       to_f(from_f<T>(__fmul_rn(wy1, wx0))),
+                       to_f(from_f<T>(__fmul_rn(wy1, wx1))));
+      q.x = ((int)y0f * W + (int)x0f) * C;
+      q.y = S2D ? ((y >> 1) * (Wo >> 1) + (x >> 1)) * 4 * C +
+                      ((y & 1) * 2 + (x & 1)) * C
+                : p * C;
+    }
+    pw[tid] = wv;
+    pq[tid] = q;
+  }
+  __syncthreads();
+
+  // kVisit chunks at a time, so that the block's warps read a few chunks
+  // of the tile's source window at a time and its lines are reused from
+  // L1; a pixel's weights and addresses serve its kVisit pieces
+  const int nch = (C + CC - 1) / CC;
+  const int right = C / V, below = W * C / V;  // in pieces
+  for (int ch = 0; ch < nch; ch += kVisit) {
+    const int c = ch * CC + part * V;
+    if (c >= C) continue;
+    const T* sc = s + c;
+    int8_t* oc = o + c;
+#pragma unroll 2
+    for (int i = 0; i < kPix; ++i) {
+      const int pix = slot + kSlots * i;
+      const int2 q = pq[pix];
+      if (q.y < 0) continue;
+      const float4 wv = pw[pix];
+      const float w[4] = {wv.x, wv.y, wv.z, wv.w};
+      const auto* t = reinterpret_cast<const Vec<T, V>*>(sc + q.x);
+#pragma unroll
+      for (int v = 0; v < kVisit; ++v) {
+        if (c + v * CC >= C) break;
+        const int k = v * kPieces;
+        q8_piece<T, V>(t[k], t[k + right], t[k + below],
+                       t[k + below + right], w, inv, oc + q.y + v * CC);
+      }
+    }
+  }
+}
+
+template <typename T, bool S2D>
+int launch_q8(const void* src, const void* grid, void* out,
+              const void* inv_s, int B, int H, int W, int C, int K, int Ho,
+              int Wo, cudaStream_t stream) {
+  // offsets within a source and within a crop are ints
+  if ((long long)H * W * C > INT_MAX || (long long)Ho * Wo * C > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  const int tiles_x = (Wo + kTile - 1) / kTile;
+  const int tiles_y = (Ho + kTile - 1) / kTile;
+  dim3 grid_dim(tiles_x * tiles_y, K, B);
+  crop_q8_tiled<T, S2D><<<grid_dim, kQThreads, 0, stream>>>(
+      static_cast<const T*>(src), static_cast<const float*>(grid),
+      static_cast<int8_t*>(out), static_cast<const float*>(inv_s), H, W, C,
+      K, Ho, Wo, tiles_x);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, typename OutT, bool S2D = false>
 int dispatch(const void* src, const void* grid, void* out, const void* inv_s,
              int B, int H, int W, int C, int K, int Ho, int Wo, int vec,
@@ -167,9 +368,14 @@ int dispatch(const void* src, const void* grid, void* out, const void* inv_s,
   if (B == 0 || K == 0 || Ho * Wo == 0 || C == 0) return 0;
   if (S2D && (Ho % 2 || Wo % 2)) return (int)cudaErrorInvalidValue;
   constexpr int VMAX = 16 / sizeof(T);
-  if (vec == VMAX)
-    return launch<T, VMAX, OutT, S2D>(src, grid, out, inv_s, B, H, W, C, K,
-                                      Ho, Wo, st);
+  if (vec == VMAX) {
+    if constexpr (std::is_same<OutT, int8_t>::value)
+      return launch_q8<T, S2D>(src, grid, out, inv_s, B, H, W, C, K, Ho, Wo,
+                               st);
+    else
+      return launch<T, VMAX, OutT, S2D>(src, grid, out, inv_s, B, H, W, C,
+                                        K, Ho, Wo, st);
+  }
   return launch<T, 1, OutT, S2D>(src, grid, out, inv_s, B, H, W, C, K, Ho,
                                  Wo, st);
 }

@@ -244,10 +244,11 @@ def conv2d_int8_plain(xq, w_int8, w_scale, s_x, b, stride, padding,
 
 
 # csrc/conv2d_int8.cu's limits: phases and taps per axis, bytes of K per
-# step
-MAX_PHASES = 8
-MAX_TAPS = 8
+# step, and the channel multiple of its 16-byte chunks
+MAX_PHASES = 16
+MAX_TAPS = 16
 BK = 128
+C_MULTIPLE = 16
 # csrc/conv2d_int8.cu's tiles, (BM, BN) -> stages of its ring (`Stages`)
 TILES = {(256, 64): 5, (128, 128): 6, (128, 64): 4}
 # an O = 64 conv with more K steps than this takes the 256 x 64 tile
@@ -303,8 +304,9 @@ def conv_plan(N, H, W, C, O, KH, KW, stride, padding, dilation,
 @functools.lru_cache(maxsize=256)
 def _plan_ints(N, H, W, C, O, KH, KW, stride, padding, dilation,
                lhs_dilation, sms):
-    """(OH, OW, the plan as csrc/conv2d_int8.cu's `Plan`: 303 C ints), or
-    raise if the kernel's tables cannot hold it."""
+    """(OH, OW, the plan as csrc/conv2d_int8.cu's `Plan`: 591 C ints), or
+    raise if the kernel's tables cannot hold it.  Each tap goes as one int,
+    its input offset * 65536 + its kernel index."""
     plan = conv_plan(N, H, W, C, O, KH, KW, stride, padding, dilation,
                      lhs_dilation, sms)
     (OH, P_y, s_y, ys), (OW, P_x, s_x, xs) = plan["axes"]
@@ -313,15 +315,17 @@ def _plan_ints(N, H, W, C, O, KH, KW, stride, padding, dilation,
         raise ValueError(f"conv2d_int8: {P_y}x{P_x} phases or more than "
                          f"{MAX_TAPS} taps per phase and axis (kernel "
                          f"{KH}x{KW}, input dilation {lhs_dilation})")
+    if any(not -2 ** 15 <= off < 2 ** 15 for _, taps in ys + xs
+           for _, off in taps):
+        raise ValueError(f"conv2d_int8: a tap offset beyond +-32767 "
+                         f"(padding {padding})")
     ints = [N, H, W, C, O, KH, KW, OH, OW, P_y, P_x, s_y, s_x, *plan["tile"]]
     for phases in (ys, xs):
-        pad = [(0, ())] * (MAX_PHASES - len(phases))
-        rows = list(phases) + pad
+        rows = list(phases) + [(0, ())] * (MAX_PHASES - len(phases))
         ints += [n for n, _ in rows] + [len(t) for _, t in rows]
-        for col in (0, 1):   # kernel index, then input offset, of each tap
-            for _, taps in rows:
-                ints += [tap[col] for tap in taps] + [0] * (MAX_TAPS
-                                                         - len(taps))
+        for _, taps in rows:
+            ints += [off * 65536 + k for k, off in taps] + [0] * (
+                MAX_TAPS - len(taps))
     return OH, OW, (ctypes.c_int * len(ints))(*ints)
 
 
@@ -347,8 +351,27 @@ def _refuse(xq, w_int8, tensors, out_dtype):
     if out_dtype not in _ENTRY:
         raise TypeError(f"conv2d_int8: output {out_dtype} (bf16/f32)")
     raise ValueError(f"conv2d_int8: x {tuple(xq.shape)}, w "
-                     f"{tuple(w_int8.shape)}; NHWC and OHWI, C must match "
-                     "and be a multiple of 16")
+                     f"{tuple(w_int8.shape)}; NHWC and OHWI, C must match")
+
+
+def pad_channels(t):
+    """t (..., C) with zero channels appended up to a multiple of
+    C_MULTIPLE (t itself where C is one).  A zero channel adds 0 to every
+    int32 sum, so the conv over padded operands is exact."""
+    extra = -t.shape[-1] % C_MULTIPLE
+    return F.pad(t, (0, extra)) if extra else t
+
+
+def _kernel_weight(w_int8):
+    """pad_channels(w_int8), made once per weight tensor and kept on it
+    while its contents stay the same."""
+    if w_int8.shape[-1] % C_MULTIPLE == 0:
+        return w_int8
+    kept = getattr(w_int8, "_c_padded", None)
+    if kept is None or kept[0] != w_int8._version:
+        kept = (w_int8._version, pad_channels(w_int8).contiguous())
+        w_int8._c_padded = kept
+    return kept[1]
 
 
 def conv2d_int8_nhwc(xq, w_int8, w_scale, s_x, b, stride, padding, dilation,
@@ -356,17 +379,20 @@ def conv2d_int8_nhwc(xq, w_int8, w_scale, s_x, b, stride, padding, dilation,
     """Kernel `conv2d_int8` (contract of `conv2d_int8_plain`); stride,
     dilation and lhs_dilation are (h, w) pairs, padding (h, w) or ((top,
     bottom), (left, right)).  CPU tensors take the plain version.  On CUDA
-    C is a multiple of 16, and the kernel's tables hold at most MAX_PHASES
-    (8) output phases per axis (lhs_dilation / gcd(stride, lhs_dilation))
-    and MAX_TAPS (8) taps per phase and axis (at most 8 for a direct conv,
-    about k / lhs_dilation for a transposed one): a larger conv raises."""
+    a C that is not a multiple of C_MULTIPLE (16) is padded with zero
+    channels (`pad_channels`; the weight's padded copy is made once and
+    kept), which leaves the int32 sums exact.  The kernel's tables hold
+    at most MAX_PHASES (16) output phases per axis (lhs_dilation /
+    gcd(stride, lhs_dilation)) and MAX_TAPS (16) taps per phase and axis
+    (a direct conv of kernel size up to 16, a transposed one of about 16
+    taps per stride): a larger conv raises ValueError."""
     dev = xq.get_device()
     entry = _ENTRY.get(out_dtype)
     # one test on the fast path; _refuse says what is wrong
     if not (xq.is_cuda and entry is not None and xq.dtype is torch.int8
             and w_int8.dtype is torch.int8 and xq.dim() == 4
             and w_int8.dim() == 4 and w_int8.shape[3] == xq.shape[3]
-            and xq.shape[3] % 16 == 0 and w_int8.get_device() == dev
+            and w_int8.get_device() == dev
             and w_scale.get_device() == dev and s_x.get_device() == dev
             and (b is None or b.get_device() == dev)):
         if xq.device.type == "cpu":
@@ -374,6 +400,8 @@ def conv2d_int8_nhwc(xq, w_int8, w_scale, s_x, b, stride, padding, dilation,
                                      padding, dilation, out_dtype,
                                      lhs_dilation)
         _refuse(xq, w_int8, [w_int8, w_scale, s_x, b], out_dtype)
+    if xq.shape[3] % C_MULTIPLE:
+        xq, w_int8 = pad_channels(xq), _kernel_weight(w_int8)
     N, H, W, C = xq.shape
     O, KH, KW, _ = w_int8.shape
     if min(lhs_dilation) < 1:

@@ -75,7 +75,7 @@ ENTRIES = {e.symbol: e for e in (
     Entry("pillar_scatter", "scatter_max_bf16", "scatter_max", _SCATTER),
     Entry("pillar_scatter", "scatter_max_f32", "scatter_max", _SCATTER),
     Entry("pillar_scatter", "scatter_add_f32", "scatter_add", _SCATTER),
-    # x, w, w_scale, x_scale, bias (or NULL), out, geom (int[17])
+    # x, w, w_scale, x_scale, bias (or NULL), out, plan (int[591])
     *(Entry("conv2d_int8", f"conv2d_int8_{dt}", "conv2d_int8", (_P,) * 7)
       for dt in ("bf16", "f32")),
     # x, idx, out, S, M, L

@@ -18,7 +18,8 @@ comes from these pure functions:
   multiple of 8 up to 256, 16 | C (a 16-byte chunk never crosses a tap),
   the phases and taps within the kernel's tables, and the card's 132 SMs
   filled where the shape allows;
-* the 303 ints handed to the kernel decode back to the plan;
+* the 591 ints handed to the kernel decode back to the plan, and the
+  plan's size and tables are the kernel source's;
 * the tiles and their rings, `TILES`, are the kernel source's instances;
 * `chip_smoke.py`'s plain count of the walked taps is the plan's.
 """
@@ -218,38 +219,57 @@ def test_tiles_prefer_the_largest_that_fills_the_card():
     assert 2 * (_tile_smem(128, 64) + 1024) <= 228 * 1024
 
 
-@pytest.mark.parametrize("name,args", SHAPES[-4:],
-                         ids=[n for n, _ in SHAPES[-4:]])
-def test_plan_ints_decode_to_the_plan(name, args):
+def plan_ints_of_source():
+    """(ints in `Plan`, kMaxP, kMaxT) as csrc/conv2d_int8.cu states them."""
+    src = CU.read_text()
+    size = re.search(r"sizeof\(Plan\) == (\d+) \* sizeof\(int\)", src)
+    maxp = re.search(r"constexpr int kMaxP = (\d+);", src)
+    maxt = re.search(r"constexpr int kMaxT = (\d+);", src)
+    return int(size.group(1)), int(maxp.group(1)), int(maxt.group(1))
+
+
+def assert_plan_ints_decode(args):
+    """_plan_ints(args) decodes back to conv_plan(args): the header, then
+    per axis n_out[P], ntaps[P] and tap[P][T], each tap its input offset *
+    65536 + its kernel index; the length and the tables are the kernel
+    source's."""
     N, H, W, C, O, KH, KW = args[:7]
     OH, OW, ints = Q._plan_ints(*args, SMS)
     ints = list(ints)
-    assert len(ints) == 303
+    size, maxp, maxt = plan_ints_of_source()
+    P, T = Q.MAX_PHASES, Q.MAX_TAPS
+    assert (P, T) == (maxp, maxt)
+    assert len(ints) == size == 15 + 2 * (2 * P + P * T)
     plan = Q.conv_plan(*args, sms=SMS)
     (_, Py, sy, ys), (_, Px, sx, xs) = plan["axes"]
     assert ints[:15] == [N, H, W, C, O, KH, KW, OH, OW, Py, Px, sy, sx,
                          *plan["tile"]]
-    P, T = Q.MAX_PHASES, Q.MAX_TAPS
     for a, phases in enumerate((ys, xs)):
-        base = 15 + a * (2 * P + 2 * P * T)
+        base = 15 + a * (2 * P + P * T)
         n_out = ints[base:base + P]
         ntaps = ints[base + P:base + 2 * P]
-        ks = ints[base + 2 * P:base + 2 * P + P * T]
-        offs = ints[base + 2 * P + P * T:base + 2 * P + 2 * P * T]
+        taps_at = ints[base + 2 * P:base + 2 * P + P * T]
         for r, (n, taps) in enumerate(phases):
             assert n_out[r] == n and ntaps[r] == len(taps)
-            assert [(ks[r * T + i], offs[r * T + i])
-                    for i in range(len(taps))] == list(taps)
+            assert [(v & 0xFFFF, v >> 16) for v in
+                    taps_at[r * T:r * T + len(taps)]] == list(taps)
         assert all(v == 0 for v in n_out[len(phases):])
+    return plan
+
+
+@pytest.mark.parametrize("name,args", SHAPES[-4:],
+                         ids=[n for n, _ in SHAPES[-4:]])
+def test_plan_ints_decode_to_the_plan(name, args):
+    assert_plan_ints_decode(args)
 
 
 def test_plan_refuses_what_the_kernel_tables_cannot_hold():
-    with pytest.raises(ValueError):
-        Q._plan_ints(1, 20, 20, 16, 8, 9, 9, (1, 1), ((4, 4), (4, 4)),
+    with pytest.raises(ValueError, match="more than 16 taps"):
+        Q._plan_ints(1, 20, 20, 16, 8, 17, 17, (1, 1), ((8, 8), (8, 8)),
                      (1, 1), (1, 1), SMS)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="17x17 phases"):
         Q._plan_ints(1, 4, 4, 16, 8, 1, 1, (1, 1), ((0, 0), (0, 0)),
-                     (1, 1), (9, 9), SMS)
+                     (1, 1), (17, 17), SMS)
     # stride 2 over input dilation 4: 2 phases of stride 1
     assert Q.axis_plan(5, 3, 2, (1, 1), 1, 4)[1:3] == (2, 1)
 

@@ -26,7 +26,20 @@ route (f32 source: that route quantizes the crop after casting it to the
 source dtype, which in bf16 would move ~0.25 step), at the same
 tolerance.  The CUDA kernels themselves run only on the card
 (chip_smoke.py).
+
+The tiled int8 kernel's addressing (`_tile_offsets`, a pure-Python
+statement of where kernel `crop_shared_q8` reads and writes over 16-byte
+source vectors; tile size, threads and pieces read from
+csrc/crop_shared.cu): its threads' (pixel, channel piece) pairs cover each
+tile once, the tiles write every output element exactly once (96x96,
+90x90 with partial tiles, 37x37; bf16 and f32 pieces; the s2d layout
+equal to `space_to_depth`'s), and all four taps of every pixel lie in the
+source for rotations 0-90 degrees, a crop wholly outside, a zoom-out crop
+and grids of +-1e30, +-inf and NaN.
 """
+
+import math
+import re
 
 import numpy as np
 import pytest
@@ -41,6 +54,7 @@ from lav_tpu.core.warp_pallas import (
     grid_sample_shared_pallas, grid_sample_shared_pallas_q8, s2d_eligible,
 )
 from lav_tpu_torch.core import warp
+from lav_tpu_torch.utils import native
 from tests.torch_parity import assert_close
 
 
@@ -263,3 +277,106 @@ def test_s2d_wrapper_routes_and_refuses():
     with pytest.raises(ValueError):
         warp.crop_shared(src.to("meta"), grid.to("meta"),
                          q8_x_scale=s.to("meta"), s2d=True)
+
+
+def _tile_offsets(grid, H, W, C, T, s2d=False):
+    """Kernel `crop_shared_q8`'s tiled form (`crop_q8_tiled`, over 16-byte
+    source vectors) as pure Python, for one crop: grid (Ho, Wo, 2) f32,
+    source H x W x C -> (taps, outs), LongTensors (tiles, T*T) over the
+    T x T tiles of output
+    pixels in row-major order (the kernel's blockIdx.x) and their pixels in
+    row-major order (the setup thread of each).  taps: each pixel's
+    top-left tap as a source element, (y0 W + x0) C, with the origin
+    clamped into [0, W-2] x [0, H-2] as the kernel clamps it (fmax / fmin:
+    a NaN position clamps to 0); its other taps are C, W C and (W+1) C
+    further.  outs: the pixel's first output element, in the (Ho/2, Wo/2,
+    4C) layout with `s2d`; -1 for a tile's pixels past the crop."""
+    Ho, Wo, _ = grid.shape
+    ix = (grid[..., 0].float() + 1.0) * 0.5 * (W - 1)
+    iy = (grid[..., 1].float() + 1.0) * 0.5 * (H - 1)
+    zero = torch.zeros((), dtype=torch.float32)
+    x0 = torch.fmin(torch.fmax(torch.floor(ix), zero), zero + (W - 2))
+    y0 = torch.fmin(torch.fmax(torch.floor(iy), zero), zero + (H - 2))
+    tap = (y0.long() * W + x0.long()) * C
+    y = torch.arange(Ho)[:, None].expand(Ho, Wo)
+    x = torch.arange(Wo)[None, :].expand(Ho, Wo)
+    if s2d:
+        out = ((y // 2) * (Wo // 2) + x // 2) * 4 * C + ((y % 2) * 2
+                                                          + x % 2) * C
+    else:
+        out = (y * Wo + x) * C
+    ty, tx = -(-Ho // T), -(-Wo // T)
+    taps = torch.zeros((ty * T, tx * T), dtype=torch.long)
+    outs = torch.full((ty * T, tx * T), -1, dtype=torch.long)
+    taps[:Ho, :Wo], outs[:Ho, :Wo] = tap, out
+    def tiles(t):
+        return t.reshape(ty, T, tx, T).permute(0, 2, 1, 3).reshape(
+            ty * tx, T * T)
+    return tiles(taps), tiles(outs)
+
+
+def _kernel_constants():
+    """kTile, kQThreads and kPieces as csrc/crop_shared.cu states them."""
+    src = (native.CSRC_DIR / "crop_shared.cu").read_text()
+    return tuple(int(re.search(rf"constexpr int {name} = (\d+);",
+                               src).group(1))
+                 for name in ("kTile", "kQThreads", "kPieces"))
+
+
+def _agent_grid(deg, loc=(3.0, -2.0), crop=96, out=96, H=160):
+    theta = warp.crop_theta(torch.tensor([loc]),
+                            torch.tensor([math.radians(deg)]), H, H, 2.0,
+                            crop, 0.0, 0.75)
+    return warp.affine_grid(theta, out, out)[0]
+
+
+@pytest.mark.parametrize("size,s2d", [(96, False), (96, True), (90, False),
+                                      (90, True), (37, False)])
+def test_tiled_kernel_writes_every_output_element_once(size, s2d):
+    T, threads, pieces = _kernel_constants()
+    slots = threads // pieces
+    # a thread's pixels slot + slots i and pieces part + pieces ch: each
+    # tile pixel and each V-channel piece once
+    assert sorted(s_ + slots * i for s_ in range(slots)
+                  for i in range(T * T // slots)) == list(range(T * T))
+    H = W = 160
+    grid = _agent_grid(30.0, out=size)
+    for C, V in ((384, 8), (384, 4), (40, 8)):
+        CC = pieces * V
+        starts = [ch * CC + part * V for ch in range(-(-C // CC))
+                  for part in range(pieces) if ch * CC + part * V < C]
+        assert sorted(starts) == list(range(0, C, V))
+        _, outs = _tile_offsets(grid, H, W, C, T, s2d)
+        assert outs.shape == ((-(-size // T)) ** 2, T * T)
+        first = outs[outs >= 0]
+        assert first.numel() == size * size
+        written = (first[:, None] + torch.arange(C)[None, :]).reshape(-1)
+        count = torch.bincount(written, minlength=size * size * C)
+        assert count.numel() == size * size * C and bool((count == 1).all())
+        if s2d:   # the kernel's s2d store is space_to_depth's layout
+            orig = torch.arange(size * size * C).reshape(1, 1, size, size, C)
+            at = warp.space_to_depth(orig).reshape(-1)
+            _, plain = _tile_offsets(grid, H, W, C, T, False)
+            keep = plain >= 0
+            assert torch.equal(at[outs[keep]], plain[keep])
+
+
+def test_tiled_kernel_taps_stay_in_the_source():
+    T = _kernel_constants()[0]
+    H, W, C = 160, 150, 64
+    grids = [_agent_grid(deg, loc, crop, H=H)
+             for deg in (0.0, 22.5, 45.0, 67.5, 90.0)
+             for loc, crop in (((3.0, -2.0), 96), ((38.0, -39.0), 96),
+                               ((1e3, -1e3), 96), ((0.0, 0.0), 192))]
+    odd = torch.tensor([1e30, -1e30, float("inf"), -float("inf"),
+                        float("nan"), 0.0])
+    grids.append(torch.stack(torch.meshgrid(odd, odd, indexing="ij"), -1))
+    for grid in grids:
+        taps, outs = _tile_offsets(grid, H, W, C, T)
+        t = taps[outs >= 0]
+        assert bool((t >= 0).all())
+        assert bool((t + (W + 1) * C + C <= H * W * C).all())
+    # a crop wholly outside reads one corner
+    taps, outs = _tile_offsets(_agent_grid(33.0, (1e3, -1e3), H=H),
+                                        H, W, C, T)
+    assert taps[outs >= 0].unique().numel() == 1
