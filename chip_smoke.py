@@ -21,17 +21,25 @@ Phases, each printing its own line and raising on failure:
           of the int8 forms
   pillar  kernel pillar_scatter_max against its plain version at the
           agent's shapes (4 x 49152 points, 64 channels, 4 x 102401
-          pillars) with masked points, duplicate ids, empty pillars and
-          negative values, and its bf16 form at the production shapes
-          (16 x 60000 points, 16 x 102401 pillars); must be exact
+          pillars) with masked points at NEG in the in-range dump slots,
+          duplicate ids, empty pillars and negative values, and its bf16
+          form at the production shapes (16 x 60000 points, 16 x 102401
+          pillars); must be exact; host-paced and device-only times and
+          host us per call beside scatter_reduce_'s; then the four
+          canvas-max entries (scatter_max and pillar_scatter_max, bf16 and
+          f32) on crafted cases, exact with NaN positions equal: NaN,
+          -0.0, -inf and NEG lanes, one pillar of 5,000 points, every id
+          out of range, no point, C = 2 and C = 66, a feat 4 bytes into
+          its storage
   scatter kernels scatter_max (bf16 and f32, exact) and scatter_add (f32)
           against their plain versions at the production shapes (16 x
           60000 points into 16 x 102400 + 1 rows) with duplicate ids,
-          empty pillars and dump-row points; scatter_add also on a
-          contention case (runs of 16 equal ids) and on the ids and
-          payloads the production agent hands it at tick 1 and once its
-          ring buffer is full; host-paced and device-only times beside
-          index_add_'s
+          empty pillars and dump-row points (a fifth, in range);
+          scatter_add also on a contention case (runs of 16 equal ids);
+          both on the ids and payloads the production agent hands them at
+          tick 1 and once its ring buffer is full (scatter_max held exact,
+          NaN positions equal); host-paced and device-only times and host
+          us per call beside index_add_'s and scatter_reduce_'s
   conv_int8  kernel conv2d_int8 against its plain version at every int8
           conv shape of the production tick (16 egos), and at the variant
           routes' shapes (the s2d conv1 and the three int8 upconvs as
@@ -83,6 +91,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -135,13 +144,10 @@ def cuda_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters: int = 20, warmup: int = 2) -> float:
-    """Mean device-only time of fn() in ms: the summed durations of the
-    kernels and fills it runs, from torch.profiler, over `iters` runs;
-    the host's time between launches is left out.  The profiler now and
-    then records no device activity for a whole run; after three such
-    runs the time is taken with CUDA events around single calls, each
-    after a synchronize (the median), and the log says so."""
+def device_split(torch, fn, iters: int = 20, warmup: int = 2) -> dict:
+    """{kernel or fill: its mean device-only ms per fn() call}, from
+    torch.profiler over `iters` runs; {} when the profiler recorded no
+    device activity in three runs (it now and then records none)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -154,10 +160,23 @@ def device_ms(torch, fn, iters: int = 20, warmup: int = 2) -> float:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA)
-        if total > 0:
-            return total / iters / 1e3
+        split = {e.key: e.self_device_time_total / iters / 1e3
+                 for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA}
+        if sum(split.values()) > 0:
+            return split
+    return {}
+
+
+def device_ms(torch, fn, iters: int = 20, warmup: int = 2) -> float:
+    """Mean device-only time of fn() in ms: the summed durations of the
+    kernels and fills it runs (`device_split`); the host's time between
+    launches is left out.  When the profiler records nothing, the time is
+    taken with CUDA events around single calls, each after a synchronize
+    (the median), and the log says so."""
+    split = device_split(torch, fn, iters, warmup)
+    if split:
+        return sum(split.values())
     log("timing", "the profiler saw no device time in three runs: CUDA "
         "events around single calls instead")
     start = torch.cuda.Event(enable_timing=True)
@@ -492,28 +511,20 @@ def phase_pillar(ctx):
         f"{empty:.3f}, negative maxima {neg:.3f}")
     if err != 0.0 or not torch.equal(out, ref):
         raise AssertionError("pillar_scatter_max disagrees with plain")
-    ms = cuda_ms(torch, lambda: pillar_scatter_max(feat, pid, E * S))
-    plain_ms = cuda_ms(torch, lambda: pillar_scatter_max_plain(
-        feat, pid, E * S))
     canvas = torch.full((E * S, C), NEG, device=dev)
-    idx = pid.long()[:, None].expand(-1, C)
-    lib_ms = cuda_ms(torch, lambda: canvas.scatter_reduce_(
-        0, idx, feat, "amax", include_self=True))
-    nbytes = feat.numel() * 4 + pid.numel() * 4 + E * S * C * 4
-    bms, by = bound_ms(nbytes, feat.numel())
-    ctx["pillar"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, bound_ms=bms, bound_by=by)
-    log("pillar", f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"scatter_reduce_ {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}, "
-        f"{nbytes / 1e6:.1f} MB) on {ctx.get('smi', '?')}")
-    del feat, pid, out, ref, canvas, idx
+    ctx["pillar"] = dict(max_abs_err=err, **_time_canvas(
+        torch, ctx, "pillar", "f32", pillar_scatter_max,
+        pillar_scatter_max_plain, canvas, feat, pid, E * S))
+    del feat, pid, out, ref, canvas
     ctx["pillar_bf16"] = _pillar_bf16(torch, ctx, dev)
+    _canvas_cases(torch, dev)
 
 
 def _pillar_bf16(torch, ctx, dev):
     """The bf16 form (BENCH_PALLAS=1 under bf16) at the production shapes:
     16 x 60000 points, 64 channels, 16 x (102400 + 1) pillars, masked
-    points at NEG, duplicates, empty pillars and negative values."""
+    points at NEG in the in-range dump slots, duplicates, empty pillars
+    and negative values."""
     from lav_tpu_torch.ops.pillar import (
         NEG, pillar_scatter_max, pillar_scatter_max_plain,
     )
@@ -540,22 +551,124 @@ def _pillar_bf16(torch, ctx, dev):
         f"pillars {empty:.3f}, dump slots 0 {dump_zero}")
     if err != 0.0 or not torch.equal(out, ref) or not dump_zero:
         raise AssertionError("pillar_scatter_max bf16 disagrees with plain")
-    ms = cuda_ms(torch, lambda: pillar_scatter_max(feat, pid, E * S))
-    plain_ms = cuda_ms(torch, lambda: pillar_scatter_max_plain(
-        feat, pid, E * S))
     canvas = torch.full((E * S, C), NEG, dtype=torch.bfloat16, device=dev)
-    idx = pid.long()[:, None].expand(-1, C)
-    lib_ms = cuda_ms(torch, lambda: canvas.scatter_reduce_(
-        0, idx, feat, "amax", include_self=True))
-    nbytes = feat.numel() * 2 + pid.numel() * 4 + E * S * C * 2
-    bms, by = bound_ms(nbytes, feat.numel())
-    log("pillar", f"bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"scatter_reduce_ {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}, "
-        f"{nbytes / 1e6:.1f} MB) on {ctx.get('smi', '?')}")
-    del feat, pid, out, ref, canvas, idx
+    res = dict(max_abs_err=err, **_time_canvas(
+        torch, ctx, "pillar", "bf16", pillar_scatter_max,
+        pillar_scatter_max_plain, canvas, feat, pid, E * S))
+    del feat, pid, out, ref, canvas
     torch.cuda.empty_cache()
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, bound_ms=bms, bound_by=by)
+    return res
+
+
+def _time_canvas(torch, ctx, phase, label, kernel, plain, canvas, feat, pid,
+                 S, with_plain=True):
+    """A canvas max on (feat, pid, S): host-paced (`ms`) and device-only
+    ms and host us per call, beside scatter_reduce_ "amax" into `canvas`
+    (the same function given a filled canvas; it may hold rows past S for
+    the ids the kernel drops) and the plain version; the bound counts
+    payload, ids and the S-row canvas once."""
+    idx = pid.long()[:, None].expand(-1, feat.shape[1])
+
+    def lib():
+        canvas.scatter_reduce_(0, idx, feat, "amax", include_self=True)
+
+    split = device_split(torch, lambda: kernel(feat, pid, S))
+    log(phase, f"{label}: device-only ms by kernel: " + ", ".join(
+        f"{re.sub(r'[(]anonymous namespace[)]::|^void ', '', k).split('(')[0]} "
+        f"{v:.4f}" for k, v in sorted(split.items(), key=lambda kv: -kv[1])))
+    r = dict(ms=cuda_ms(torch, lambda: kernel(feat, pid, S), iters=20),
+             device_ms=device_ms(torch, lambda: kernel(feat, pid, S)),
+             host_us=host_us(torch, lambda: kernel(feat, pid, S)),
+             plain_ms=(cuda_ms(torch, lambda: plain(feat, pid, S))
+                       if with_plain else None),
+             library_ms=cuda_ms(torch, lib, iters=20),
+             library_device_ms=device_ms(torch, lib),
+             library_host_us=host_us(torch, lib))
+    nbytes = (feat.numel() * feat.element_size() + pid.numel() * 4
+              + S * feat.shape[1] * feat.element_size())
+    r["bound_ms"], r["bound_by"] = bound_ms(nbytes, feat.numel())
+    log(phase, f"{label}: kernel {r['ms']:.4f} ms host-paced, "
+        f"{r['device_ms']:.4f} ms device-only, {r['host_us']:.1f} us host "
+        f"per call; plain {r['plain_ms']} ms; scatter_reduce_ "
+        f"{r['library_ms']:.4f} / {r['library_device_ms']:.4f} ms, "
+        f"{r['library_host_us']:.1f} us; bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {nbytes / 1e6:.1f} MB): "
+        f"device-only {r['device_ms'] / r['bound_ms']:.2f}x the bound on "
+        f"{ctx.get('smi', '?')}")
+    del idx
+    return r
+
+
+def _canvas_cases(torch, dev):
+    """The four canvas-max entries (scatter_max and pillar_scatter_max, bf16
+    and f32) on crafted cases, each exact against its plain version with
+    NaN positions equal: NaN, -0.0, -inf and NEG lanes among negative
+    values with ids out of range on both sides; one pillar of 5,000 points
+    with a NaN lane among them; every id out of range; no point; C = 2 and
+    C = 66; a feat that starts 4 bytes into its storage."""
+    from lav_tpu_torch.ops.pillar import (
+        NEG, pillar_scatter_max, pillar_scatter_max_plain, scatter_max,
+        scatter_max_plain,
+    )
+
+    g = torch.Generator(device="cpu").manual_seed(7)
+    N, S = 20000, 10000
+
+    def lanes(C):
+        f = torch.randn((N, C), generator=g)
+        r = torch.rand((N, C), generator=g)
+        f[r < 0.01] = float("nan")
+        f[(r >= 0.01) & (r < 0.03)] = -0.0
+        f[(r >= 0.03) & (r < 0.04)] = NEG
+        f[(r >= 0.04) & (r < 0.045)] = float("-inf")
+        return f
+
+    ids = torch.randint(0, S, (N,), generator=g)
+    ids[:300], ids[300:600] = -1 - torch.arange(300), S + torch.arange(300)
+    hot = ids.clone()
+    hot[1000:6000] = 17
+    hot_feat = torch.randn((N, 64), generator=g)
+    hot_feat[4321, 5] = float("nan")
+    cases = {
+        "NaN, -0.0, -inf, NEG lanes; ids outside": (lanes(64), ids),
+        "one pillar of 5000 points, a NaN lane": (hot_feat, hot),
+        "every id outside": (lanes(64), torch.where(
+            torch.arange(N) % 2 == 0, S + torch.arange(N) % 7,
+            -1 - torch.arange(N) % 5)),
+        "no point": (torch.zeros((0, 64)), torch.zeros((0,))),
+        "C = 2": (lanes(2), ids),
+        "C = 66": (lanes(66), ids),
+    }
+    kernels = (("scatter_max", scatter_max, scatter_max_plain),
+               ("pillar_scatter_max", pillar_scatter_max,
+                pillar_scatter_max_plain))
+    for dtype in (torch.bfloat16, torch.float32):
+        items = [(k, f.to(dev, dtype), p.to(dev, torch.int32))
+                 for k, (f, p) in cases.items()]
+        # 4 bytes into its storage: 16-byte pieces are not aligned
+        base = torch.empty(N * 64 * 2 + 16, dtype=dtype, device=dev)
+        shift = 4 // base.element_size()
+        moved = base[shift:shift + N * 64].view(N, 64)
+        moved.copy_(items[0][1])
+        items.append(("feat 4 bytes into its storage", moved, items[0][2]))
+        for label, f, p in items:
+            for name, kernel, plain in kernels:
+                out = kernel(f, p, S)
+                ref = plain(f, p, S)
+                torch.cuda.synchronize()
+                try:
+                    torch.testing.assert_close(out, ref, rtol=0, atol=0,
+                                               equal_nan=True)
+                except AssertionError as e:
+                    raise AssertionError(
+                        f"{name} {dtype} on '{label}' disagrees with its "
+                        f"plain version: {e}") from None
+        nans = [torch.isnan(k(items[0][1], items[0][2], S)).sum().item()
+                for _, k, _ in kernels]
+        log("pillar", f"canvas max {str(dtype)[6:]}: {len(items)} crafted "
+            f"cases exact for scatter_max and pillar_scatter_max (NaN "
+            f"positions equal; NaN cells in the first case: {nans[0]} and "
+            f"{nans[1]})")
 
 
 def phase_scatter(ctx):
@@ -598,20 +711,11 @@ def phase_scatter(ctx):
         if err != 0.0 or not torch.equal(out, ref):
             raise AssertionError(f"scatter_max {name} disagrees with plain")
         if dtype == torch.bfloat16:
-            ms = cuda_ms(torch, lambda: scatter_max(feat, pid, S))
-            plain_ms = cuda_ms(torch, lambda: scatter_max_plain(feat, pid, S))
             canvas = torch.zeros((S, C), dtype=dtype, device=dev)
-            idx = pid.long()[:, None].expand(-1, C)
-            lib_ms = cuda_ms(torch, lambda: canvas.scatter_reduce_(
-                0, idx, feat, "amax", include_self=True))
-            nbytes = feat.numel() * 2 + pid.numel() * 4 + S * C * 2
-            bms, by = bound_ms(nbytes, feat.numel())
-            res["max"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                              library_ms=lib_ms, bound_ms=bms, bound_by=by)
-            log("scatter", f"max bf16: kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, scatter_reduce_ {lib_ms:.4f} ms, bound "
-                f"{bms:.4f} ms ({by}, {nbytes / 1e6:.1f} MB) on "
-                f"{ctx.get('smi', '?')}")
+            res["max"] = dict(max_abs_err=err, **_time_canvas(
+                torch, ctx, "scatter", "max bf16", scatter_max,
+                scatter_max_plain, canvas, feat, pid, S))
+            del canvas
         del feat, out, ref
     # add: the decoration sums, xyz of the valid points and a count lane
     xyz = (torch.rand((E * P, 3), generator=g) * 60.0 - 20.0)
@@ -623,11 +727,42 @@ def phase_scatter(ctx):
     res["add"]["runs_of_16"] = _scatter_add_case(torch, ctx, "runs of 16",
                                                  feat, runs_pid, S)
     del feat, pid, runs_pid, xyz
-    # the ids and payloads the agent itself hands the kernel
+    # the ids and payloads the agent itself hands the kernels
+    agent = _agent_scatter_inputs(torch, ctx)
     res["add"]["real_ids"] = {
         label: _scatter_add_case(torch, ctx, f"agent {label}", *args)
-        for label, args in _agent_add_inputs(torch, ctx).items()}
+        for label, args in agent["add"].items()}
+    res["max"]["real_ids"] = {
+        label: _scatter_max_agent(torch, ctx, label, *args)
+        for label, args in agent["max"].items()}
     ctx["scatter"] = res
+
+
+def _scatter_max_agent(torch, ctx, label, feat, pid, S):
+    """scatter_max on the (feat, pid, S) the production tick hands it:
+    exact against its plain version (NaN positions equal), then timed; the
+    dropped ids (S, the invalid points) land in an extra row of
+    scatter_reduce_'s canvas."""
+    from lav_tpu_torch.ops.pillar import scatter_max, scatter_max_plain
+
+    out = scatter_max(feat, pid, S)
+    ref = scatter_max_plain(feat, pid, S)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=0, atol=0, equal_nan=True)
+    dropped = ((pid < 0) | (pid >= S)).float().mean().item()
+    counts = torch.bincount(pid[(pid >= 0) & (pid < S)].long(),
+                            minlength=S)
+    log("scatter", f"max agent {label}: {pid.numel()} points into {S} "
+        f"rows, {dropped:.3f} dropped, {(counts > 0).sum().item()} rows "
+        f"reached, most points in a row {counts.max().item()}; exact")
+    canvas = torch.zeros((S + 1, feat.shape[1]), dtype=feat.dtype,
+                         device=feat.device)
+    r = _time_canvas(torch, ctx, "scatter", f"max agent {label}",
+                     scatter_max, scatter_max_plain, canvas, feat, pid, S,
+                     with_plain=False)
+    del out, ref, counts, canvas
+    torch.cuda.empty_cache()
+    return r
 
 
 def _scatter_add_case(torch, ctx, label, feat, pid, S, plain=False):
@@ -686,13 +821,15 @@ def _scatter_add_case(torch, ctx, label, feat, pid, S, plain=False):
                 library_device_ms=lib_dev_ms, library_host_us=lib_us)
 
 
-def _agent_add_inputs(torch, ctx):
-    """The (feat, pid, S) that segment_mean_gather hands kernel
-    scatter_add in bench.py's production tick (16 egos, 10000 points per
-    sweep), taken by wrapping the wrapper: at tick 1, before the first
-    sweep enters the ring buffer (every point goes to the dump row with a
-    zero payload), and at the first tick whose ring buffer holds more than
-    10 sweeps, where all three stacked sweeps are filled."""
+def _agent_scatter_inputs(torch, ctx):
+    """The (feat, pid, S) that bench.py's production tick (16 egos, 10000
+    points per sweep) hands kernels scatter_add (segment_mean_gather's
+    sums) and scatter_max (the canvas), taken by wrapping the wrappers: at
+    tick 1, before the first sweep enters the ring buffer (every point is
+    invalid: a zero payload into the sums' dump row, an id outside the
+    canvas), and at the first tick whose ring buffer holds more than 10
+    sweeps, where all three stacked sweeps are filled.  -> {"add": {label:
+    args}, "max": {label: args}}."""
     from lav_tpu_torch.agent.setup import v2_agent_setup
     from lav_tpu_torch.ops import pillar
 
@@ -700,29 +837,39 @@ def _agent_add_inputs(torch, ctx):
         max_points=MAX_POINTS_PROD, num_ego=NUM_EGO_PROD,
         device=ctx["device"], seed=0, quant="mxu",
         compute_dtype=torch.bfloat16)
-    real, seen, taken = pillar.scatter_add, [], {}
+    real = {op: getattr(pillar, f"scatter_{op}") for op in ("add", "max")}
+    seen = {op: [] for op in real}
+    taken = {op: {} for op in real}
 
-    def spy(feat, pid, num_segments):
-        seen.append((feat.clone(), pid.clone(), num_segments))
-        return real(feat, pid, num_segments)
+    def spy(op):
+        def run(feat, pid, num_segments):
+            seen[op].append((feat.clone(), pid.clone(), num_segments))
+            return real[op](feat, pid, num_segments)
+        return run
 
-    pillar.scatter_add = spy
+    for op in real:
+        setattr(pillar, f"scatter_{op}", spy(op))
     try:
         for t in range(1, 16):
-            seen.clear()
+            for op in real:
+                seen[op].clear()
             _, state, _ = step(models, state, obs)
-            if len(seen) != 1:
-                raise AssertionError(f"tick {t}: scatter_add ran "
-                                     f"{len(seen)} times")
+            for op in real:
+                if len(seen[op]) != 1:
+                    raise AssertionError(f"tick {t}: scatter_{op} ran "
+                                         f"{len(seen[op])} times")
             full = int(state.buf_count.min()) > 10
             if t == 1 or full:
-                taken[f"tick {t}"] = seen[0]
+                for op in real:
+                    taken[op][f"tick {t}"] = seen[op][0]
             if full:
                 break
     finally:
-        pillar.scatter_add = real
-    if len(taken) != 2:
-        raise AssertionError(f"the ring buffer never filled: {list(taken)}")
+        for op in real:
+            setattr(pillar, f"scatter_{op}", real[op])
+    if len(taken["add"]) != 2:
+        raise AssertionError(f"the ring buffer never filled: "
+                             f"{list(taken['add'])}")
     del step, models, state, obs
     torch.cuda.empty_cache()
     return taken
@@ -1471,8 +1618,8 @@ def kernels_line(ctx):
          "pillar_scatter_max.cu", "lav_tpu/ops/pillar_pallas.py:36"),
         ("pillar_scatter_max_bf16", ctx.get("pillar_bf16"), "variants",
          "pillar_scatter_max.cu", "lav_tpu/ops/pillar_pallas.py:36"),
-        ("scatter_max", scatter.get("max"), "production", "pillar_scatter.cu",
-         "lav_tpu/ops/pillar_pallas2.py:84"),
+        ("scatter_max", scatter.get("max"), "production",
+         "pillar_scatter_max.cu", "lav_tpu/ops/pillar_pallas2.py:84"),
         ("scatter_add", scatter.get("add"), "production", "pillar_scatter.cu",
          "lav_tpu/ops/pillar_pallas2.py:84"),
         ("conv2d_int8", ctx.get("conv_int8"), "production", "conv2d_int8.cu",

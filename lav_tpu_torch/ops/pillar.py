@@ -10,21 +10,29 @@ exactly 0 (LAV's zero canvas).  Both of lav_tpu's routes are here:
 
   use_pallas=False (production, the default): the canvas is kernel
     `scatter_max`, a zero-init max of the non-negative post-ReLU features
-    in the compute dtype; every invalid point goes to one dump row past
-    the B * ny * nx canvas rows, which is sliced off.  lav_tpu sorts the
-    points first, a TPU tactic for its scatters; the sort changes only the
-    order of the f32 decoration sums.
+    in the compute dtype, over the B * ny * nx canvas rows; every invalid
+    point gets the id B * ny * nx, outside the canvas, and is dropped, as
+    lav_tpu's `mode="drop"` scatter drops it.  The decoration sums keep
+    that id as an in-range dump row.  lav_tpu sorts the points first, a
+    TPU tactic for its scatters; the sort changes only the order of the
+    f32 decoration sums.
   use_pallas=True (`BENCH_PALLAS=1` in lav_tpu's bench): each item has its
-    own dump slot (pid + b * (ny*nx+1)); masked points carry NEG and the
+    own dump slot in the decoration sums (pid + b * (ny*nx+1)), and the
     canvas is kernel `pillar_scatter_max` (NEG-init, NEG -> 0), the port
     of `pillar_scatter_max_pallas`, in f32 or bf16 (counted as
-    `pillar_scatter_max_bf16`).  In bf16 NEG is -1e30 rounded to bf16, and
-    the canvas compares in bf16, as the Pallas kernel does.
+    `pillar_scatter_max_bf16`).  lav_tpu sends the masked points, which
+    carry NEG, to the dump slots; here they get an id outside the canvas
+    and are dropped, which gives the same canvas.  In bf16 NEG is -1e30
+    rounded to bf16, and the canvas compares in bf16, as the Pallas kernel
+    does.
 
-Kernels `scatter_max` and `scatter_add` (csrc/pillar_scatter.cu) port
-lav_tpu's Pallas `scatter_pallas` (ops/pillar_pallas2.py), and
-`pillar_scatter_max` (csrc/pillar_scatter_max.cu) its
-`pillar_scatter_max_pallas` (ops/pillar_pallas.py).
+Kernel `scatter_add` (csrc/pillar_scatter.cu) ports lav_tpu's Pallas
+`scatter_pallas` (ops/pillar_pallas2.py) with op="add"; kernels
+`scatter_max` (its op="max") and `pillar_scatter_max` (lav_tpu's
+`pillar_scatter_max_pallas`, ops/pillar_pallas.py) are one design in
+csrc/pillar_scatter_max.cu.  Both maxima keep NaN as lav_tpu does: a NaN
+payload lands and sticks, and `pillar_scatter_max`'s finalize turns it
+into 0.
 """
 
 from __future__ import annotations
@@ -96,15 +104,17 @@ def decorate_points(points, pid, keep, ix, iy, *, min_x: float, min_y: float,
 
 def pillar_scatter_max_plain(feat, pid, num_segments: int):
     """Plain version of kernel `pillar_scatter_max`: feat (N, C) f32 or
-    bf16, pid (N,) in [0, num_segments) -> (num_segments, C): a canvas
-    filled with NEG in feat's dtype, max over the points, values not above
-    that NEG -> 0."""
+    bf16, pid (N,) -> (num_segments, C): a canvas filled with NEG in
+    feat's dtype, max over the points (a NaN lands and sticks), values not
+    above that NEG (NaN included) -> 0; ids outside the range are
+    dropped."""
     C = feat.shape[-1]
     canvas = torch.full((num_segments, C), NEG, dtype=feat.dtype,
                         device=feat.device)
     neg = torch.tensor(NEG, dtype=feat.dtype, device=feat.device)
-    canvas.scatter_reduce_(0, pid.long()[:, None].expand(-1, C), feat,
-                           "amax", include_self=True)
+    ok = (pid >= 0) & (pid < num_segments)
+    canvas.scatter_reduce_(0, pid.long()[ok][:, None].expand(-1, C),
+                           feat[ok], "amax", include_self=True)
     return torch.where(canvas > neg, canvas, torch.zeros_like(canvas))
 
 
@@ -116,16 +126,40 @@ def pillar_scatter_max(feat, pid, num_segments: int):
     """Kernel `pillar_scatter_max` (contract of `pillar_scatter_max_plain`),
     f32 or bf16 (C even).  CPU tensors take the plain version."""
     return _scatter("pillar_scatter_max", _K2_ENTRY.get(feat.dtype),
-                    pillar_scatter_max_plain, feat.new_empty, feat, pid,
-                    num_segments)
+                    pillar_scatter_max_plain, feat, pid, num_segments,
+                    canvas=True)
 
 
-def _scatter(name, entry, plain, alloc, feat, pid, num_segments: int):
-    """Launch `entry` (kernel `name`) on (feat, pid) into an output from
-    `alloc`; CPU tensors take `plain`.  The checks the three scatters share
-    (int32 pid (N,) beside feat (N, C) on its device, both contiguous, bf16
-    rows in 4-byte channel pairs) are one test on the fast path; `_refuse`
-    says what is wrong."""
+# csrc/pillar_scatter_max.cu's kTile, kHot, kGroupPoints and kAlign
+CANVAS_TILE, CANVAS_HOT, CANVAS_GROUP_POINTS, CANVAS_ALIGN = 4096, 64, 32, 256
+
+
+def canvas_scratch_bytes(n: int, C: int, num_segments: int,
+                         elem: int) -> int:
+    """Bytes of the scratch buffer the canvas max takes for n points of C
+    channels of `elem` bytes into num_segments rows: the `Layout` of
+    csrc/pillar_scatter_max.cu, array by array (each aligned to
+    CANVAS_ALIGN): meta, counts, chunks done, tile sums, ranks, indices,
+    hot rows, their first chunks, partial maxima."""
+    def up(b):
+        return -(-b // CANVAS_ALIGN) * CANVAS_ALIGN
+
+    tiles = -(-(num_segments + 1) // CANVAS_TILE)
+    max_hot = n // (CANVAS_HOT + 1) + 1
+    max_chunks = n // CANVAS_GROUP_POINTS + max_hot
+    return (up(16) + up(4 * tiles * CANVAS_TILE) + up(4 * max_hot)
+            + up(4 * tiles) + 2 * up(4 * n) + 2 * up(4 * max_hot)
+            + up(max_chunks * C * elem))
+
+
+def _scatter(name, entry, plain, feat, pid, num_segments: int,
+             canvas: bool):
+    """Launch `entry` (kernel `name`) on (feat, pid); CPU tensors take
+    `plain`.  A canvas max writes every row of an uninitialised output and
+    takes a scratch buffer (`canvas_scratch_bytes`); the add sums into a
+    zeroed one.  The checks the scatters share (int32 pid (N,) beside feat
+    (N, C) on its device, both contiguous, bf16 rows in 4-byte channel
+    pairs) are one test on the fast path; `_refuse` says what is wrong."""
     dev = feat.get_device()
     if not (feat.is_cuda and entry is not None and pid.dtype is torch.int32
             and feat.dim() == 2 and pid.dim() == 1
@@ -137,9 +171,18 @@ def _scatter(name, entry, plain, alloc, feat, pid, num_segments: int):
             return plain(feat, pid, num_segments)
         _refuse(name, entry, feat, pid)
     N, C = feat.shape
-    out = alloc((num_segments, C))
+    if not canvas:
+        out = feat.new_zeros((num_segments, C))
+        native.launch(entry, dev, feat.data_ptr(), pid.data_ptr(),
+                      out.data_ptr(), N, C, num_segments)
+        return out
+    out = feat.new_empty((num_segments, C))
+    scratch = torch.empty(canvas_scratch_bytes(N, C, num_segments,
+                                               feat.element_size()),
+                          dtype=torch.uint8, device=feat.device)
     native.launch(entry, dev, feat.data_ptr(), pid.data_ptr(),
-                  out.data_ptr(), N, C, num_segments)
+                  out.data_ptr(), N, C, num_segments, scratch.data_ptr(),
+                  scratch.numel())
     return out
 
 
@@ -161,8 +204,8 @@ def _refuse(name, entry, feat, pid):
 def scatter_max_plain(feat, pid, num_segments: int):
     """Plain version of kernel `scatter_max`: feat (N, C) f32 or bf16,
     pid (N,) -> (num_segments, C): a zero canvas raised to each point's
-    features (max(0, max over points)); ids outside the range are
-    dropped."""
+    features (max(0, max over points); a NaN lands and sticks, as in
+    lav_tpu's drop scatter); ids outside the range are dropped."""
     C = feat.shape[-1]
     canvas = feat.new_zeros((num_segments, C))
     ok = (pid >= 0) & (pid < num_segments)
@@ -189,16 +232,14 @@ def scatter_max(feat, pid, num_segments: int):
     """Kernel `scatter_max` (contract of `scatter_max_plain`), the canvas
     of the production route.  CPU tensors take the plain version."""
     return _scatter("scatter_max", _K3_ENTRY.get(("max", feat.dtype)),
-                    scatter_max_plain, feat.new_zeros, feat, pid,
-                    num_segments)
+                    scatter_max_plain, feat, pid, num_segments, canvas=True)
 
 
 def scatter_add(feat, pid, num_segments: int):
     """Kernel `scatter_add` (contract of `scatter_add_plain`), the
     decoration sums.  CPU tensors take the plain version."""
     return _scatter("scatter_add", _K3_ENTRY.get(("add", feat.dtype)),
-                    scatter_add_plain, feat.new_zeros, feat, pid,
-                    num_segments)
+                    scatter_add_plain, feat, pid, num_segments, canvas=False)
 
 
 class PointPillar(nn.Module):
@@ -230,14 +271,15 @@ class PointPillar(nn.Module):
         pid, keep, ix, iy = compute_pillar_ids(points, valid, nx=nx, ny=ny,
                                                **self.geo)
         offs = torch.arange(B, dtype=pid.dtype, device=pid.device)[:, None]
-        if use_pallas:
+        # the canvas' ids: B * G (outside the canvas) for invalid points
+        canvas_pid = torch.where(keep, pid + offs * G,
+                                 torch.full_like(pid, B * G)).reshape(-1)
+        if use_pallas:     # the decoration sums' per-item dump slots
             S = B * (G + 1)
-            pid_flat = (pid + offs * (G + 1)).reshape(-1)
-        else:
+            pid_flat = (pid + offs * (G + 1)).reshape(-1).contiguous()
+        else:              # B * G is the sums' dump row
             S = B * G + 1
-            pid_flat = torch.where(keep, pid + offs * G,
-                                   torch.full_like(pid, B * G)).reshape(-1)
-        pid_flat = pid_flat.contiguous()
+            pid_flat = canvas_pid
         keep = keep.reshape(-1)
         feat = decorate_points(
             points.reshape(-1, D), pid_flat, keep, ix.reshape(-1),
@@ -247,9 +289,6 @@ class PointPillar(nn.Module):
             feat = getattr(self, f"linear_{i}")(feat)
             feat = F.relu(getattr(self, f"bn_{i}")(feat))
         C = feat.shape[-1]
-        if not use_pallas:
-            canvas = scatter_max(feat.contiguous(), pid_flat, S)
-            return canvas[:B * G].reshape(B, ny, nx, C)
-        feat = torch.where(keep[:, None], feat, torch.full_like(feat, NEG))
-        canvas = pillar_scatter_max(feat.contiguous(), pid_flat, S)
-        return canvas.reshape(B, G + 1, C)[:, :G].reshape(B, ny, nx, C)
+        kernel = pillar_scatter_max if use_pallas else scatter_max
+        canvas = kernel(feat.contiguous(), canvas_pid, B * G)
+        return canvas.reshape(B, ny, nx, C)

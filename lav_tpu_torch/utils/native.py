@@ -20,9 +20,9 @@ launch.
 
 `LAUNCHES` counts, per kernel, the wrapper calls that launched it on the
 card; `reset_launches` sets every count to 0.  A source may hold several
-kernels (`pillar_scatter.cu` holds the zero-init max and the add), and a
-kernel's forms are counted apart where a path must show which one ran
-(`crop_shared_q8_s2d`, `pillar_scatter_max_bf16`).
+kernels (`pillar_scatter_max.cu` holds the NEG-init and the zero-init
+canvas max), and a kernel's forms are counted apart where a path must show
+which one ran (`crop_shared_q8_s2d`, `pillar_scatter_max_bf16`).
 """
 
 from __future__ import annotations
@@ -58,8 +58,10 @@ class Entry:
 
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# feat, pid, out, n_points, C, segments
+# feat, pid, out, n_points, C, segments; the canvas max adds its scratch
+# buffer and that buffer's bytes
 _SCATTER = (_P, _P, _P, _LL, _I, _LL)
+_CANVAS = (*_SCATTER, _P, _LL)
 ENTRIES = {e.symbol: e for e in (
     # src, grid, out, B, H, W, C, K, Ho, Wo, vec; the q8 forms take inv_s
     # after out
@@ -69,11 +71,11 @@ ENTRIES = {e.symbol: e for e in (
       for k in ("crop_shared_q8", "crop_shared_q8_s2d")
       for dt in ("f32", "bf16")),
     Entry("pillar_scatter_max", "pillar_scatter_max_f32",
-          "pillar_scatter_max", _SCATTER),
+          "pillar_scatter_max", _CANVAS),
     Entry("pillar_scatter_max", "pillar_scatter_max_bf16",
-          "pillar_scatter_max_bf16", _SCATTER),
-    Entry("pillar_scatter", "scatter_max_bf16", "scatter_max", _SCATTER),
-    Entry("pillar_scatter", "scatter_max_f32", "scatter_max", _SCATTER),
+          "pillar_scatter_max_bf16", _CANVAS),
+    Entry("pillar_scatter_max", "scatter_max_bf16", "scatter_max", _CANVAS),
+    Entry("pillar_scatter_max", "scatter_max_f32", "scatter_max", _CANVAS),
     Entry("pillar_scatter", "scatter_add_f32", "scatter_add", _SCATTER),
     # x, w, w_scale, x_scale, bias (or NULL), out, plan (int[591])
     *(Entry("conv2d_int8", f"conv2d_int8_{dt}", "conv2d_int8", (_P,) * 7)

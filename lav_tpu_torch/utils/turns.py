@@ -2,6 +2,8 @@
 
     python3 -m lav_tpu_torch.utils.turns crop --parent DIR [--diagnose]
     python3 -m lav_tpu_torch.utils.turns conv --parent DIR
+    python3 -m lav_tpu_torch.utils.turns scatter --parent DIR [--diagnose]
+        [--variants]
 
 Run on a machine with a card, from the root of a checkout; DIR is another
 checkout (for instance the parent commit unpacked with `git archive`).
@@ -22,6 +24,22 @@ read from one address.  Their outputs differ, and are not compared.
 conv: `csrc/conv2d_int8.cu` on the variant routes' transposed convs and
 two production shapes, each build launched with the plan of its own
 tree's `nn/quant.py` (`_plan_ints`).
+
+scatter: the canvas max, the parent's per-(point, channel pair) atomic
+kernels (`scatter_max_bf16` in its `csrc/pillar_scatter.cu`, launched
+into a zeroed canvas as its wrapper did; `pillar_scatter_max_{bf16,f32}`
+in its `csrc/pillar_scatter_max.cu`, fill and finalize inside) against
+this tree's `csrc/pillar_scatter_max.cu` with its scratch buffer: on
+chip_smoke.py's phase ids (a fifth of the points in an in-range dump
+row), on the ids the production agent hands `scatter_max` at tick 1 and
+at the first full-ring tick (captured as chip_smoke.py's phase `scatter`
+does; the parent also with the dump row in range, as its route had it),
+and on one pillar of 5,000 points among the phase's others.
+`--diagnose` adds builds of the parent's sources without their fill
+(K3: the canvas not zeroed), without K2's finalize, and with a plain store
+in place of the compare-and-swap loop or atomic; their outputs differ, and
+are not compared.  `--variants` adds builds of this tree's source with one
+of its choices undone (`SCATTER_VARIANTS`); their outputs must equal.
 """
 
 from __future__ import annotations
@@ -211,13 +229,187 @@ def conv(parent: Path) -> dict:
     return res
 
 
+_CAS = "    atomic_max_bf16x2(out + s * half + c, v);"
+_FILLS = ["  fill_kernel<<<blocks_for(n_out), kThreads, 0, st>>>(o, n_out);",
+          "  fill_bf16x2_kernel<<<blocks_for(n_out), kThreads, 0, st>>>(o, "
+          "n_out);"]
+_FINALIZES = [f.replace("fill", "finalize") for f in _FILLS]
+# per diagnostic build: the text changes of the parent's two sources
+SCATTER_DIAGNOSE = {
+    "no fill": {"pillar_scatter": [], "pillar_scatter_max": [
+        (f, "") for f in _FILLS]},
+    "no finalize": {"pillar_scatter_max": [(f, "") for f in _FINALIZES]},
+    "no atomics": {
+        "pillar_scatter": [(_CAS, "    out[s * half + c] = v;")],
+        "pillar_scatter_max": [
+            (_CAS, "    out[s * half + c] = v;"),
+            ("    atomic_max_float(out + s * C + c, v);",
+             "    out[s * C + c] = v;")]},
+}
+_LOOP4 = "  for (; k + 3 * step < end; k += 4 * step) {"
+_PEERS = ("  const unsigned peers = __match_any_sync(active, s);\n"
+          "  const int lane = threadIdx.x & 31, leader = __ffs(peers) - 1;")
+# this tree's canvas max with one choice changed: the histogram's warp
+# aggregation (only the warp's least and greatest ids grouped, or none),
+# the rows kernel's register cap (6 blocks an SM, not 8), four loads in
+# flight (eight), a hot chunk's 32 points a group (64), and the hot
+# threshold of 64 points (32, 128)
+SCATTER_VARIANTS = {
+    "least and greatest ids grouped": [(_PEERS, """  const int lane = threadIdx.x & 31;
+  const int lo = (int)__reduce_min_sync(active, (unsigned)s);
+  const int hi = (int)__reduce_max_sync(active, (unsigned)s);
+  const unsigned at_lo = __ballot_sync(active, s == lo);
+  const unsigned at_hi = __ballot_sync(active, s == hi);
+  const unsigned peers = s == lo ? at_lo : s == hi ? at_hi : 1u << lane;
+  const int leader = __ffs(peers) - 1;"""), (
+        "  base = __shfl_sync(peers, base, leader);",
+        "  base = __shfl_sync(active, base, leader);")],
+    "no ids grouped": [(_PEERS, "  const int lane = threadIdx.x & 31;\n"
+                        "  const unsigned peers = 1u << lane;\n"
+                        "  const int leader = lane;")],
+    "6 blocks an SM": [("__launch_bounds__(kThreads, 8) rows_kernel",
+                        "__launch_bounds__(kThreads) rows_kernel")],
+    "8 loads in flight": [(_LOOP4, """  for (; k + 7 * step < end; k += 8 * step) {
+    int q[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) q[i] = __ldg(a.idx + k + i * step);
+    Piece<W> v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = load<W, false>(f + q[i] * rb);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc.add(v[i]);
+  }
+""" + _LOOP4)],
+    "64 points a group": [("constexpr int kGroupPoints = 32;",
+                           "constexpr int kGroupPoints = 64;")],
+    "hot above 32": [("constexpr int kHot = 64;", "constexpr int kHot = 32;")],
+    "hot above 128": [("constexpr int kHot = 64;",
+                       "constexpr int kHot = 128;")],
+}
+# the parent's source of each canvas-max entry
+_PARENT_SOURCE = {"scatter_max_bf16": "pillar_scatter",
+                  "pillar_scatter_max_bf16": "pillar_scatter_max",
+                  "pillar_scatter_max_f32": "pillar_scatter_max"}
+
+
+def _scatter_inputs(dev):
+    """{label: (feat, pid, S, the parent's S, entries)} of the canvas max:
+    chip_smoke.py's phase ids of `scatter` (K3-max and K2-bf16 on the
+    same post-ReLU payloads) and of `pillar` (K2-bf16, K2 f32), the
+    5,000-point pillar, and the agent's ids."""
+    from lav_tpu_torch.ops.pillar import NEG
+
+    both = ("scatter_max_bf16", "pillar_scatter_max_bf16")
+    E, P, G = cs.NUM_EGO_PROD, 2 * cs.MAX_POINTS_PROD * 3, 320 * 320
+    g = torch.Generator(device="cpu").manual_seed(4)
+    local = torch.randint(0, G // 8, (E, P), generator=g)
+    invalid = torch.rand((E, P), generator=g) < 0.2
+    pid = torch.where(invalid, torch.full_like(local, E * G),
+                      local + torch.arange(E)[:, None] * G).reshape(-1)
+    feat = torch.relu(torch.randn((E * P, 64), generator=g))
+    hot = pid.clone()
+    hot[100000:105000] = 17
+    ins = {"phase ids": (feat, pid, E * G + 1),
+           "one pillar of 5000 points": (feat, hot, E * G + 1)}
+    ins = {k: (f.to(dev, torch.bfloat16), p.to(dev, torch.int32), s, s,
+               both) for k, (f, p, s) in ins.items()}
+    for label, (f, p, s) in cs._agent_scatter_inputs(
+            torch, {"device": "cuda"})["max"].items():
+        ins[f"agent {label}"] = (f, p, s, s, both)
+        ins[f"agent {label}, dump row in range"] = (f, p, s + 1, s + 1, both)
+    # phase pillar's: masked points at NEG in the per-item dump slots
+    for name, E, P, seed, spread, dtype in (
+            ("pillar_scatter_max_bf16", cs.NUM_EGO_PROD,
+             2 * cs.MAX_POINTS_PROD * 3, 6, 8, torch.bfloat16),
+            ("pillar_scatter_max_f32", cs.NUM_EGO, 2 * cs.MAX_POINTS * 3, 2,
+             4, torch.float32)):
+        S = G + 1
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        f = torch.randn((E, P, 64), generator=g)
+        local = torch.randint(0, G // spread, (E, P), generator=g)
+        invalid = torch.rand((E, P), generator=g) < 0.2
+        local[invalid] = G
+        f[invalid] = NEG
+        p = (local + torch.arange(E)[:, None] * S).reshape(-1)
+        ins[f"pillar phase ids, {E} egos"] = (
+            f.reshape(-1, 64).to(dev, dtype), p.to(dev, torch.int32), E * S,
+            E * S, (name,))
+    return ins
+
+
+def scatter(parent: Path, diagnose: bool, variants: bool) -> dict:
+    from lav_tpu_torch.ops.pillar import canvas_scratch_bytes
+
+    psrc = parent / "lav_tpu_torch" / "csrc"
+    here = native.CSRC_DIR / "pillar_scatter_max.cu"
+    trees = {"parent": {s: build(f"parent {s}", psrc / f"{s}.cu")
+                        for s in ("pillar_scatter", "pillar_scatter_max")},
+             "this tree": build("this canvas max", here)}
+    if diagnose:
+        for name, subs in SCATTER_DIAGNOSE.items():
+            trees[f"parent, {name}"] = {
+                s: build(f"parent {name} {s}", psrc / f"{s}.cu", sub)
+                for s, sub in subs.items()}
+    same = ["parent", "this tree"]
+    if variants:
+        for name, subs in SCATTER_VARIANTS.items():
+            trees[f"this tree, {name}"] = build(f"this {name}", here, subs)
+            same.append(f"this tree, {name}")
+    dev = torch.device("cuda")
+    res = {}
+    for label, (feat, pid, S, parent_S, symbols) in _scatter_inputs(
+            dev).items():
+        N, C = feat.shape
+        for symbol in symbols:
+            runs = {}
+            for name, lib in trees.items():
+                if name.startswith("this tree"):
+                    fn = entry(lib, symbol, native.ENTRIES[symbol].argtypes)
+                    out = torch.empty((S, C), dtype=feat.dtype, device=dev)
+                    # twice this tree's layout: a variant's may be larger
+                    scratch = torch.empty(2 * canvas_scratch_bytes(
+                        N, C, S, feat.element_size()), dtype=torch.uint8,
+                        device=dev)
+                    args = (N, C, S, scratch.data_ptr(), scratch.numel())
+                    zero = False
+                else:
+                    source = _PARENT_SOURCE[symbol]
+                    if source not in lib:
+                        continue
+                    fn = entry(lib[source], symbol, native._SCATTER)
+                    out = torch.empty((parent_S, C), dtype=feat.dtype,
+                                      device=dev)
+                    args = (N, C, parent_S)
+                    zero = (source == "pillar_scatter"
+                            and name != "parent, no fill")
+
+                def run(fn=fn, out=out, args=args, zero=zero):
+                    if zero:
+                        out.zero_()
+                    err = fn(feat.data_ptr(), pid.data_ptr(), out.data_ptr(),
+                             *args, torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise RuntimeError(f"{symbol}: cudaError {err}")
+                    return out[:S]
+                runs[name] = run
+            key = f"{symbol}, {label}"
+            res[key] = in_turns(runs, key, same)
+        del feat, pid
+        torch.cuda.empty_cache()
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("kernel", choices=("crop", "conv"))
+    ap.add_argument("kernel", choices=("crop", "conv", "scatter"))
     ap.add_argument("--parent", required=True, type=Path,
                     help="the other checkout's root")
     ap.add_argument("--diagnose", action="store_true",
-                    help="crop: add the old kernel's diagnostic builds")
+                    help="crop, scatter: add the parent kernel's "
+                    "diagnostic builds")
+    ap.add_argument("--variants", action="store_true",
+                    help="scatter: add this tree's kernel with one choice "
+                    "undone in each build")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("turns: no card", file=sys.stderr)
@@ -226,7 +418,8 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     res = (crop(args.parent, args.diagnose) if args.kernel == "crop"
-           else conv(args.parent))
+           else scatter(args.parent, args.diagnose, args.variants)
+           if args.kernel == "scatter" else conv(args.parent))
     print(json.dumps(res))
     return 0
 

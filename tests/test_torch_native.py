@@ -191,3 +191,47 @@ def test_launch_without_a_card_raises(stub):
         native.launch(native.ENTRIES["take_along_rows_b16"], 0, 1, 2, 3, 8,
                       8, 128)
     assert not any(native.LAUNCHES.values())
+
+
+def _layout_total(n, rows, row_bytes):
+    """csrc/pillar_scatter_max.cu's `Layout` constructor, read from the
+    source and run in Python (integer arithmetic, every operand >= 0)."""
+    src = (native.CSRC_DIR / "pillar_scatter_max.cu").read_text()
+    consts = {k: int(v) for k, v in re.findall(
+        r"constexpr (?:int|size_t) (k\w+) = (\d+);", src)}
+    body = src[src.index("  Layout(long long n"):]
+    body = body[body.index("{") + 1:body.index("\n  }")]
+    scope = dict(consts, n=n, rows=rows, row_bytes=row_bytes, at=0)
+
+    def take(nbytes):
+        start = scope["at"]
+        scope["at"] = -(-(start + nbytes) // consts["kAlign"]) * \
+            consts["kAlign"]
+        return start
+
+    scope["take"] = take
+    for code in re.sub(r"//[^\n]*", "", body).split(";"):
+        code = code.strip()
+        if not code:
+            continue
+        code = re.sub(r"\((?:int|size_t)\)", "", code)
+        code = re.sub(r"(\d+)ull", r"\1", code).replace("/", "//")
+        exec(code, {}, scope)
+    return scope["total"], consts
+
+
+@pytest.mark.parametrize("n,C,rows,elem", [
+    (960000, 64, 16 * 102400, 2),       # the production canvas, bf16
+    (196608, 64, 4 * 102401, 4),        # the f32 agent's, per-item slots
+    (0, 64, 10000, 2),                  # no point
+    (20000, 2, 10000, 4),
+    (20000, 66, 10000, 2),
+])
+def test_canvas_scratch_bytes_covers_the_kernel_layout(n, C, rows, elem):
+    from lav_tpu_torch.ops import pillar as P
+
+    total, consts = _layout_total(n, rows, C * elem)
+    assert (consts["kTile"], consts["kHot"], consts["kGroupPoints"],
+            consts["kAlign"]) == (P.CANVAS_TILE, P.CANVAS_HOT,
+                                  P.CANVAS_GROUP_POINTS, P.CANVAS_ALIGN)
+    assert P.canvas_scratch_bytes(n, C, rows, elem) == total

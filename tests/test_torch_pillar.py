@@ -86,6 +86,41 @@ def test_scatter_max_bf16_matches_pallas_interpret(seed, n, C, G, invalid,
         assert (out.float().numpy() < 0).any()
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("kind", ["nan", "-0.0"])
+def test_scatter_max_keeps_nan_as_pallas_interpret(kind, dtype):
+    """NaN and -0.0 lanes among the valid points: the Pallas kernel's
+    maximum keeps a NaN and its finalize (`> NEG`) turns it into 0; -0.0
+    lanes stay 0 in value (the plain version keeps the -0.0 the max took,
+    the Pallas kernel's row sum makes it +0)."""
+    feat, pid = _scatter_case(11, 512, 64, 200, 0.2)
+    r = np.random.default_rng(12)
+    lanes = (r.uniform(size=feat.shape) < 0.03) & (feat > NEG)
+    if kind == "nan":
+        feat[lanes] = np.nan
+    else:
+        feat[feat < 0] = -0.0
+        feat[lanes] = -0.0
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    fj = jnp.asarray(feat, jdt)
+    ref = pillar_scatter_max_pallas(fj, jnp.asarray(pid), num_segments=200,
+                                    slab=128, interpret=True)
+    ref = torch.from_numpy(np.array(ref.astype(jnp.float32)))
+    tf = torch.from_numpy(np.array(fj.astype(jnp.float32))).to(tdt)
+    out = P.pillar_scatter_max(tf, torch.from_numpy(pid), 200)
+    assert out.dtype == tdt
+    torch.testing.assert_close(out.float(), ref, rtol=0, atol=0,
+                               equal_nan=True)
+    assert not torch.isnan(out).any()
+    if kind == "nan":   # the NaN cells: 0, where a NaN-free max is not
+        hit = torch.zeros(out.shape, dtype=torch.bool)
+        hit.index_put_((torch.from_numpy(pid).long()[:, None].expand(
+            -1, 64)[torch.from_numpy(lanes)],
+            torch.arange(64).expand(len(pid), -1)[torch.from_numpy(lanes)]),
+            torch.tensor(True))
+        assert hit.any() and (out[hit] == 0).all()
+
+
 def test_scatter_max_wrapper_routes_by_device():
     feat, pid = _scatter_case(4, 64, 16, 40, 0.3)
     f, p = torch.from_numpy(feat), torch.from_numpy(pid)
@@ -244,3 +279,36 @@ def _check_bf16(cfg_name, B, n, use_pallas):
     np.testing.assert_array_equal(out.float().numpy() == 0, ref[..., :C] == 0)
     assert_close("pillar.point_pillar_apply.bf16", out, ref[..., :C],
                  atol=0.0)
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_point_pillar_canvas_drops_invalid_points(use_pallas, monkeypatch):
+    """Both routes hand their canvas kernel (`scatter_max`, or
+    `pillar_scatter_max` with use_pallas) num_segments == B * ny * nx and
+    give every invalid point an id outside it, as lav_tpu's `mode="drop"`
+    scatter drops it; the decoration sums keep their dump rows; the canvas
+    still equals lav_tpu's."""
+    cfg, model, pts, valid, ref = _f32_case("tiny", 2, 128)
+    name = "pillar_scatter_max" if use_pallas else "scatter_max"
+    real, seen = getattr(P, name), []
+
+    def spy(feat, pid, num_segments):
+        seen.append((pid.clone(), num_segments))
+        return real(feat, pid, num_segments)
+
+    monkeypatch.setattr(P, name, spy)
+    with torch.no_grad():
+        out = model(torch.from_numpy(pts), torch.from_numpy(valid),
+                    use_pallas=use_pallas)
+    (pid, S), = seen
+    G = cfg.nx * cfg.ny
+    assert S == 2 * G and pid.dtype == torch.int32 and pid.is_contiguous()
+    _, keep, _, _ = P.compute_pillar_ids(
+        torch.from_numpy(pts), torch.from_numpy(valid), nx=cfg.nx,
+        ny=cfg.ny, **_geo(cfg))
+    keep = keep.reshape(-1)
+    assert (~keep).sum() > 0 and keep.sum() > 0
+    assert ((pid >= 0) & (pid < S)).eq(keep).all()
+    assert (pid[keep] // G == torch.arange(2).repeat_interleave(128)[keep]
+            ).all()                                   # each item's rows
+    _check_f32(cfg, 2, out, ref)

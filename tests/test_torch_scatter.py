@@ -5,7 +5,11 @@ where the wrappers run their plain versions.
 
 P = 1024 points into S = 301 segments, many duplicate ids, empty
 segments and invalid points at the dump slot with zero payload (the
-contract of `scatter_pallas`), in both of its modes.  max is exact (it
+contract of `scatter_pallas`), in both of its modes.  The plain max is
+also held to lav_tpu's production route for the canvas, the XLA scatter
+`jnp.zeros(...).at[pid].max(feat, mode="drop")`, on NaN, -0.0 and negative
+payloads and on ids outside the canvas, exactly and with NaN positions
+equal: a NaN lands and sticks, -0.0 and negative values leave +0.  max is exact (it
 does not depend on order); add holds to atol 1e-5 with rtol 1e-6 (f32
 sums of up to ~15 values of |v| <= 40 taken in another order: an ulp of
 a sum near 200 is 1.5e-5), and its count lane is exact.  lav_tpu pads
@@ -176,3 +180,45 @@ def test_scatter_add_all_zero_rows_can_be_dropped_bit_for_bit():
     keep = nonzero[perm]
     assert torch.equal(_bits(shuffled), _bits(P.scatter_add_plain(
         f[perm][keep], p[perm][keep], SEGMENTS)))
+
+
+def _drop_case(seed, kind, n=256, S=40, C=8):
+    """Payloads and ids for the drop scatter: normal values, then NaN
+    lanes, -0.0 for every negative, only negative values, or a third of
+    the ids at or past S (lav_tpu's route gives its invalid points the id
+    S; JAX would wrap a negative id as Python indexing does, which the
+    route never makes, and the port drops it:
+    test_scatter_wrappers_route_by_device_and_drop_outside_ids)."""
+    r = np.random.default_rng(seed)
+    feat = r.normal(size=(n, C)).astype(np.float32)
+    pid = r.integers(0, S, n).astype(np.int32)
+    if kind == "nan":
+        feat[r.uniform(size=(n, C)) < 0.02] = np.nan
+    elif kind == "-0.0":
+        feat[feat < 0] = -0.0
+    elif kind == "negative":
+        feat = -np.abs(feat) - 0.1
+    elif kind == "outside":
+        pid[::3] = S + r.integers(0, 50, pid[::3].size)
+    return feat, pid, S
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("kind", ["nan", "-0.0", "negative", "outside"])
+def test_scatter_max_plain_matches_the_drop_scatter(kind, dtype):
+    feat, pid, S = _drop_case(10, kind)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    fj = jnp.asarray(feat, jdt)
+    ref = jnp.zeros((S, feat.shape[1]), jdt).at[jnp.asarray(pid)].max(
+        fj, mode="drop")
+    ref = torch.from_numpy(np.array(ref.astype(jnp.float32)))
+    tf = torch.from_numpy(np.array(fj.astype(jnp.float32))).to(tdt)
+    out = P.scatter_max(tf, torch.from_numpy(pid), S)
+    assert out.dtype == tdt and out.shape == ref.shape
+    torch.testing.assert_close(out.float(), ref, rtol=0, atol=0,
+                               equal_nan=True)
+    if kind == "nan":
+        assert torch.isnan(out).any()
+    else:   # -0.0 and negative values leave +0, as the drop scatter does
+        assert torch.equal(torch.signbit(out.float()), torch.signbit(ref))
+        assert (out >= 0).all()
