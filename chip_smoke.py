@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases build,crop # a subset, for bring-up
     python3 chip_smoke.py --phases build,crop,scatter,conv_int8,production
     python3 chip_smoke.py --phases build,pillar,crop,conv_int8,gather,variants
+    python3 chip_smoke.py --phases build,train_kernels,train
 
 Phases, each printing its own line and raising on failure:
   build   the card's name and power limit; nvcc builds every kernel
@@ -74,6 +75,27 @@ Phases, each printing its own line and raising on failure:
           pillar_scatter_max, crop_shared_q8_s2d, scatter_add and 42
           conv2d_int8 launches every tick, crop_shared_q8 and scatter_max
           none; controls, CPU parity and the p50 tick as in production
+  train_kernels  the distillation step's two backward kernels against
+          their plain versions: crop_shared_bwd on the student's crops of
+          a step (4 items, 4 other-car crops and the ego's, 96x96 from a
+          160x160x384 map; one straddling the border, one wholly outside),
+          per cell within CROP_BWD_RTOL of its sum of |g w|, and a crop
+          outside adding nothing; pillar_scatter_max_bwd on the inputs one
+          step (4 x 16384 points) hands it and on crafted ties (2, 3 and
+          40 equal maxima, ties at 0), dropped ids and empty rows, exact;
+          host-paced and device-only ms and host us per call beside the
+          library's gradient (F.grid_sample's input gradient by autograd;
+          autograd through scatter_reduce "amax", which splits ties too)
+  train   the v2 distillation step (lav_tpu.train.distill,
+          make_full_train_step(v2_config(), Adam(3e-4), v2=True,
+          mode="full"), f32) at full width: step 1 at B = 2 on the card
+          against the port on the CPU (the same weights from seed 0, batch
+          and noise) in loss, grad_norm and four gradient leaves; then B =
+          4 with 16384 points an item, 3 steps in which crop_shared,
+          crop_shared_bwd (exactly the student's two calls), pillar_scatter_max,
+          pillar_scatter_max_bwd and scatter_add each launch, with loss
+          and grad_norm finite, and 4 more: the p50 step over steps 2-7
+          and samples/s
   profile (only when asked for) one warm tick of the agent under
           torch.profiler (--config f32, production, variants, both = the
           first two, or all): device time
@@ -100,12 +122,21 @@ import time
 AGENT_KERNELS = ("crop_shared", "pillar_scatter_max", "scatter_add")
 VARIANT_ABSENT = ("crop_shared_q8", "scatter_max", "pillar_scatter_max")
 ALL_PHASES = ("build", "crop", "pillar", "scatter", "conv_int8", "gather",
-              "agent", "production", "variants")
+              "agent", "production", "variants", "train_kernels", "train")
 EXTRA_PHASES = ("profile",)
 NUM_EGO = 4
 MAX_POINTS = 8192
 NUM_EGO_PROD = 16           # bench.py:31
 MAX_POINTS_PROD = 10000     # bench.py:40
+NUM_EGO_TRAIN = 4           # the distillation step's batch
+MAX_POINTS_TRAIN = 16384    # lav_tpu/utils/bench_train.py --max-points
+K_TRAIN = 4                 # v2_config().max_num_cars_student
+TRAIN_KERNELS = ("crop_shared", "crop_shared_bwd", "pillar_scatter_max",
+                 "pillar_scatter_max_bwd", "scatter_add")
+TRAIN_LEAVES = ("lidar_model.point_pillar.linear_0.w",
+                "lidar_model.backbone.conv2_0.conv.w",
+                "uniplanner.lidar_conv_emb.conv1.w",
+                "uniplanner.cast_grus.w_ih")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12           # H100 SXM non-tensor f32
 INT8_OPS = 1979e12          # H100 SXM dense int8 tensor cores
@@ -117,6 +148,12 @@ CROP_Q8_STEPS = 1           # an FMA-rounded f32 sum may cross a rounding
 CROP_Q8_FRACTION = 0.01     # boundary: 1 step, on at most 1% of values
 SCATTER_ADD_RTOL = 1e-6     # of the pillar's sum of |v|: atomics add in
                             # another order (see phase_scatter)
+CROP_BWD_RTOL = 4e-6        # of a cell's sum of |g w|: up to ~60 terms
+                            # added in any order, (n - 1) 2^-24 each
+TRAIN_LOSS_RTOL = 1e-4      # card vs CPU step: cuDNN's and the CPU's conv
+TRAIN_GNORM_RTOL = 1e-2     # sums, atomics in crop_shared_bwd and
+TRAIN_LEAF_L2 = 5e-2        # scatter_add, amplified by train-mode BN (the
+                            # card differs from itself run to run)
 AGENT_ATOL = 1e-3           # cuDNN vs CPU conv summation order, f32
 AGENT_RTOL = 1e-3
 PROD_ATOL = 3e-2            # the int8 golden's (test_golden_production.py)
@@ -1600,13 +1637,361 @@ def _profile_one(ctx, config, setup):
         raise AssertionError("the profiler saw no device time")
 
 
+def _student_crop_grids(torch, dev, B=NUM_EGO_TRAIN):
+    """The distillation step's student crop grids at full width: per item
+    K_TRAIN other-car crops and the ego crop, 96x96 from the 160x160
+    feature map (ppm / 2 = 2), jittered poses; item 0's first crop
+    straddles the border and its second lies wholly outside."""
+    from lav_tpu_torch.core.warp import affine_grid, crop_theta
+
+    g = torch.Generator(device="cpu").manual_seed(7)
+    H, crop = 160, 96
+    grids = []
+    for K in (K_TRAIN, 1):
+        locs = torch.randn((B, K, 2), generator=g) * 3.0
+        oris = (torch.rand((B, K), generator=g) * 2 - 1) * 0.35
+        if K > 1:
+            locs[0, 0] = torch.tensor([38.0, -39.0])
+            locs[0, 1] = torch.tensor([1e3, -1e3])
+        theta = crop_theta(locs.reshape(-1, 2), oris.reshape(-1), H, H, 2.0,
+                           crop, 0.0, 0.75)
+        grids.append(affine_grid(theta, crop, crop).reshape(
+            B, K, crop, crop, 2).to(dev).contiguous())
+    return grids
+
+
+def _crop_bwd_case(torch, ctx, dev):
+    """Kernel crop_shared_bwd on the student's two calls of a step (K_TRAIN
+    crops, then the ego's) against its plain version, per cell within
+    CROP_BWD_RTOL of the cell's sum of |g * w|; timed as the pair."""
+    import torch.nn.functional as F
+
+    from lav_tpu_torch.core.warp import crop_shared_bwd, grid_sample_shared_bwd
+
+    H = W = 160
+    C = 384
+    grids = _student_crop_grids(torch, dev)
+    gen = torch.Generator(device="cpu").manual_seed(8)
+    gs = [torch.randn(tuple(gr.shape[:4]) + (C,), generator=gen).to(dev)
+          for gr in grids]
+    worst = 0.0
+    for gr, g in zip(grids, gs):
+        out = crop_shared_bwd(g, gr, H, W)
+        ref = grid_sample_shared_bwd(g, gr, H, W)
+        mag = grid_sample_shared_bwd(g.abs(), gr, H, W)
+        torch.cuda.synchronize()
+        excess = ((out - ref).abs() - CROP_BWD_RTOL * mag).max().item()
+        err = (out - ref).abs().max().item()
+        worst = max(worst, err)
+        log("train_kernels", f"crop_shared_bwd K={gr.shape[1]}: max_abs_err "
+            f"{err:.3e}, max |d_src| {ref.abs().max().item():.3f}, excess "
+            f"over {CROP_BWD_RTOL:g} x sum|g w| {excess:.3e} (must be <= 0)")
+        if not (excess <= 0 and torch.isfinite(out).all()):
+            raise AssertionError("crop_shared_bwd disagrees with plain")
+        if gr.shape[1] > 1:   # the crop wholly outside adds nothing
+            alone = crop_shared_bwd(g[:1, 1:2].contiguous(),
+                                    gr[:1, 1:2].contiguous(), H, W)
+            if alone.abs().max().item() != 0.0:
+                raise AssertionError("a crop outside the source added to it")
+        del out, ref, mag
+
+    def kernel():
+        return [crop_shared_bwd(g, gr, H, W) for g, gr in zip(gs, grids)]
+
+    def plain():
+        return [grid_sample_shared_bwd(g, gr, H, W) for g, gr in
+                zip(gs, grids)]
+
+    # library yardstick, timed only: F.grid_sample's input gradient by
+    # autograd on the NCHW form (each item's source expanded over its
+    # crops), the forward taken once outside the timing
+    srcs, outs, gouts = [], [], []
+    for gr, g in zip(grids, gs):
+        B, K = gr.shape[:2]
+        src = torch.zeros((B, C, H, W), device=dev, requires_grad=True)
+        with torch.backends.cudnn.flags(enabled=False):
+            o = torch.cat([F.grid_sample(src[b:b + 1].expand(K, C, H, W),
+                                         gr[b], mode="bilinear",
+                                         padding_mode="zeros",
+                                         align_corners=True)
+                           for b in range(B)])
+        srcs.append(src)
+        outs.append(o)
+        gouts.append(g.reshape(B * K, *g.shape[2:]).permute(0, 3, 1, 2))
+
+    def lib():
+        return torch.autograd.grad(outs, srcs, gouts, retain_graph=True)
+
+    r = _timed(torch, ctx, "crop_shared_bwd", kernel, plain, lib)
+    nbytes = sum(g.numel() * 4 + gr.numel() * 4 + gr.shape[0] * H * W * C * 4
+                 for g, gr in zip(gs, grids))
+    flops = sum(g.numel() * 8 for g in gs)
+    r["bound_ms"], r["bound_by"] = bound_ms(nbytes, flops)
+    log("train_kernels", f"crop_shared_bwd (a step's two calls, "
+        f"{nbytes / 1e6:.1f} MB): bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']}); device-only "
+        f"{r['device_ms'] / r['bound_ms']:.2f}x the bound on "
+        f"{ctx.get('smi', '?')}")
+    del srcs, outs, gouts, gs, grids
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=worst, **r)
+
+
+def _timed(torch, ctx, name, kernel, plain, lib):
+    """Host-paced and device-only ms and host us per call of `kernel`,
+    beside `plain` (host-paced) and `lib` (host-paced and device-only)."""
+    r = dict(ms=cuda_ms(torch, kernel, iters=20),
+             device_ms=device_ms(torch, kernel),
+             host_us=host_us(torch, kernel, n=50),
+             plain_ms=cuda_ms(torch, plain, iters=3, warmup=1),
+             library_ms=cuda_ms(torch, lib, iters=10),
+             library_device_ms=device_ms(torch, lib, iters=10))
+    log("train_kernels", f"{name}: kernel {r['ms']:.4f} ms host-paced, "
+        f"{r['device_ms']:.4f} ms device-only, {r['host_us']:.1f} us host "
+        f"per call; plain {r['plain_ms']:.4f} ms; library "
+        f"{r['library_ms']:.4f} / {r['library_device_ms']:.4f} ms on "
+        f"{ctx.get('smi', '?')}")
+    return r
+
+
+def _canvas_bwd_inputs(torch, ctx):
+    """The (g, feat, pid, canvas) that one distillation step (B =
+    NUM_EGO_TRAIN, MAX_POINTS_TRAIN points an item) hands kernel
+    pillar_scatter_max_bwd, taken by wrapping the wrapper."""
+    from lav_tpu_torch.ops import pillar
+    from lav_tpu_torch.train.distill import distill_setup
+
+    step, models, opt, batch, gen, _ = distill_setup(
+        NUM_EGO_TRAIN, MAX_POINTS_TRAIN, device=ctx["device"], seed=0)
+    real, seen = pillar.pillar_scatter_max_bwd, []
+
+    def spy(*args):
+        seen.append(tuple(a.clone() for a in args))
+        return real(*args)
+
+    pillar.pillar_scatter_max_bwd = spy
+    try:
+        step(models, opt, batch, gen)
+    finally:
+        pillar.pillar_scatter_max_bwd = real
+    if len(seen) != 1:
+        raise AssertionError(f"the step ran the canvas backward "
+                             f"{len(seen)} times")
+    del step, models, opt, batch
+    torch.cuda.empty_cache()
+    return seen[0]
+
+
+def _canvas_bwd_cases(torch, dev):
+    """Crafted (g, feat, pid, canvas) cases: ties of 2, 3 and 40 equal
+    maxima, ties at 0, dropped ids (negative and past S), empty rows, C = 4
+    (the vector path) and C = 6 (the scalar path)."""
+    from lav_tpu_torch.ops.pillar import pillar_scatter_max
+
+    g = torch.Generator(device="cpu").manual_seed(9)
+    cases = []
+    for C in (4, 6, 64):
+        S, N = 50, 400
+        feat = torch.rand((N, C), generator=g)
+        pid = torch.randint(0, S // 2, (N,), generator=g)  # rows 25+ empty
+        feat[:2] = 0.75
+        pid[:2] = 3                      # a tie of 2 in every channel
+        pid[2:5] = 4
+        feat[2:5, 0] = 2.0               # a tie of 3 in channel 0
+        pid[5:45] = 7
+        feat[5:45] = 1.5                 # a tie of 40
+        pid[45:60] = 9
+        feat[45:60] = torch.minimum(feat[45:60], torch.zeros(()))  # ties at 0
+        pid[60:70] = -1
+        pid[70:80] = S                   # dropped ids
+        feat[60:80] = 5.0
+        feat, pid = feat.to(dev), pid.to(torch.int32).to(dev)
+        canvas = pillar_scatter_max(feat, pid, S)
+        grad = torch.randn((S, C), generator=g).to(dev)
+        cases.append((f"crafted C={C}", grad, feat, pid, canvas))
+    return cases
+
+
+def _canvas_bwd_case(torch, ctx, dev):
+    """Kernel pillar_scatter_max_bwd against its plain version, exact, on
+    the step's own inputs and on crafted ties; timed on the step's."""
+    from lav_tpu_torch.ops.pillar import (
+        NEG, pillar_scatter_max_bwd, pillar_scatter_max_bwd_plain,
+    )
+
+    step_args = _canvas_bwd_inputs(torch, ctx)
+    for label, *args in [("the step's", *step_args)] + _canvas_bwd_cases(
+            torch, dev):
+        out = pillar_scatter_max_bwd(*args)
+        ref = pillar_scatter_max_bwd_plain(*args)
+        torch.cuda.synchronize()
+        g, feat, pid, canvas = args
+        S = canvas.shape[0]
+        ok = (pid >= 0) & (pid < S)
+        s = torch.where(ok, pid.long(), 0)
+        tie = ok[:, None] & (feat == canvas[s])
+        n = torch.zeros_like(canvas).index_add_(0, s, tie.float())
+        log("train_kernels", f"pillar_scatter_max_bwd {label}: "
+            f"{feat.shape[0]} points x {feat.shape[1]}, {S} rows, tied "
+            f"cells {(n > 1).sum().item()} (most {int(n.max().item())} "
+            f"points), dropped ids {(~ok).sum().item()}, equal "
+            f"{torch.equal(out, ref)} (must be)")
+        if not torch.equal(out, ref):
+            raise AssertionError(f"pillar_scatter_max_bwd ({label}) "
+                                 "disagrees with plain")
+    g, feat, pid, canvas = step_args
+    S, C = canvas.shape
+    ok = (pid >= 0) & (pid < S)
+    idx = pid.long()[ok][:, None].expand(-1, C)
+    fvalid = feat[ok].detach().clone().requires_grad_(True)
+    lib_canvas = torch.full((S, C), NEG, device=dev).scatter_reduce(
+        0, idx, fvalid, "amax", include_self=True)
+
+    def lib():
+        return torch.autograd.grad(lib_canvas, fvalid, g, retain_graph=True)
+
+    r = _timed(torch, ctx, "pillar_scatter_max_bwd",
+               lambda: pillar_scatter_max_bwd(*step_args),
+               lambda: pillar_scatter_max_bwd_plain(*step_args), lib)
+    rows = torch.unique(pid[ok]).numel()
+    nbytes = 2 * feat.numel() * 4 + pid.numel() * 4 + 2 * rows * C * 4
+    r["bound_ms"], r["bound_by"] = bound_ms(nbytes, feat.numel())
+    log("train_kernels", f"pillar_scatter_max_bwd ({rows} touched rows, "
+        f"{nbytes / 1e6:.1f} MB): bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']}); device-only "
+        f"{r['device_ms'] / r['bound_ms']:.2f}x the bound on "
+        f"{ctx.get('smi', '?')}")
+    del step_args, lib_canvas, fvalid, idx
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=0.0, **r)
+
+
+def phase_train_kernels(ctx):
+    import torch
+
+    dev = torch.device(ctx["device"])
+    ctx["train_kernels"] = {
+        "crop_shared_bwd": _crop_bwd_case(torch, ctx, dev),
+        "pillar_scatter_max_bwd": _canvas_bwd_case(torch, ctx, dev)}
+
+
+def phase_train(ctx):
+    import copy
+
+    import numpy as np
+    import torch
+
+    from lav_tpu_torch.config import v2_config
+    from lav_tpu_torch.models.planner import draw_noise
+    from lav_tpu_torch.train.distill import (
+        adam, distill_models, distill_setup, make_batch, make_full_train_step,
+    )
+    from lav_tpu_torch.utils import native
+
+    # step 1 on the card against the port on the CPU: B = 2, the same
+    # weights, batch and noise; the card twice, to show its own spread
+    # (atomics add in another order in every run)
+    cfg = v2_config()
+    cpu_models = distill_models(cfg, torch.Generator().manual_seed(0))
+    cpu_batch = make_batch(cfg, 2, MAX_POINTS_TRAIN, seed=0, device="cpu")
+    noise = draw_noise(torch.Generator().manual_seed(1), 2,
+                       cfg.max_objs - 1, cfg.max_num_cars_student)
+    step = make_full_train_step(cfg, v2=True, mode="full")
+    runs = []
+    for dev in (ctx["device"], ctx["device"], "cpu"):
+        models = copy.deepcopy(cpu_models).to(dev)
+        t0 = time.perf_counter()
+        m = step(models, adam(models), {k: v.to(dev) for k, v in
+                                        cpu_batch.items()},
+                 noise={k: v.to(dev) for k, v in noise.items()})
+        secs = time.perf_counter() - t0
+        p = dict(models.named_parameters())
+        runs.append(({k: float(m[k]) for k in ("loss", "grad_norm")},
+                     {n: p[n].grad.cpu() for n in TRAIN_LEAVES}, secs))
+        del models, p
+    (g1, g1_leaves, _), (g2, g2_leaves, _), (c, c_leaves, cpu_s) = runs
+    bad = []
+    for k, rtol in (("loss", TRAIN_LOSS_RTOL),
+                    ("grad_norm", TRAIN_GNORM_RTOL)):
+        rel = abs(g1[k] - c[k]) / abs(c[k])
+        log("train", f"B=2 step 1 {k}: card {g1[k]:.7g}, CPU {c[k]:.7g}, "
+            f"rel {rel:.3e} (rtol {rtol}); card run to run "
+            f"{abs(g1[k] - g2[k]) / abs(c[k]):.3e}")
+        if not rel <= rtol:
+            bad.append(k)
+    for name in TRAIN_LEAVES:
+        a, b = g1_leaves[name], c_leaves[name]
+        rel = float((a - b).norm() / b.norm())
+        spread = float((a - g2_leaves[name]).norm() / b.norm())
+        log("train", f"B=2 step 1 grad {name}: L2 rel {rel:.3e} (tol "
+            f"{TRAIN_LEAF_L2}), card run to run {spread:.3e}, max |g| "
+            f"{b.abs().max().item():.4g}")
+        if not rel <= TRAIN_LEAF_L2:
+            bad.append(name)
+    log("train", f"the CPU step took {cpu_s:.1f} s")
+    if bad:
+        raise AssertionError(f"train step 1, card vs CPU: {bad}")
+    del cpu_models, cpu_batch, runs
+    torch.cuda.empty_cache()
+
+    # the slice: B = NUM_EGO_TRAIN, MAX_POINTS_TRAIN points, 3 steps with
+    # launch counts, then 4 more, timed
+    step, models, opt, batch, gen, _ = distill_setup(
+        NUM_EGO_TRAIN, MAX_POINTS_TRAIN, device=ctx["device"], seed=0)
+    native.reset_launches()
+    per_step, step_ms, losses = [], [], []
+    for i in range(7):
+        before = dict(native.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(models, opt, batch, gen)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append((float(m["loss"]), float(m["grad_norm"])))
+        if i < 3:
+            per_step.append({k: native.LAUNCHES[k] - before[k]
+                             for k in TRAIN_KERNELS})
+            if i == 2:
+                ctx["launches_train"] = {k: native.LAUNCHES[k]
+                                         for k in TRAIN_KERNELS}
+    log("train", f"B={NUM_EGO_TRAIN}, {MAX_POINTS_TRAIN} points: launches "
+        f"per step {per_step}; (loss, grad_norm) {losses}")
+    if any(min(c.values()) < 1 or c["crop_shared_bwd"] != 2
+           for c in per_step):
+        raise AssertionError("a kernel of the train step missed a step, or "
+                             "crop_shared_bwd ran other than on the "
+                             "student's two crops")
+    if not np.isfinite(np.array(losses)).all():
+        raise AssertionError(f"non-finite loss or grad_norm: {losses}")
+    p50 = statistics.median(step_ms[1:])
+    ctx["train_p50_ms"] = p50
+    log("train", f"step ms {[round(t, 3) for t in step_ms]}; p50 over steps "
+        f"2-7 {p50:.3f} ms, {NUM_EGO_TRAIN / p50 * 1e3:.2f} samples/s, peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on "
+        f"{ctx.get('smi', '?')}")
+    # where a step's device time goes: one more step under torch.profiler
+    split = device_split(torch, lambda: step(models, opt, batch, gen),
+                         iters=1, warmup=0)
+    busy = sum(split.values())
+    top = sorted(split.items(), key=lambda kv: -kv[1])[:12]
+    log("train", f"one step under the profiler: device busy {busy:.3f} ms "
+        f"({busy / p50:.1%} of the p50), {len(split)} kernel names; top: "
+        + "; ".join(f"{re.sub(r'[(]anonymous namespace[)]::|^void ', '', k).split('(')[0][:60]} {v:.3f}"
+                    for k, v in top))
+    del step, models, opt, batch
+    torch.cuda.empty_cache()
+
+
 def kernels_line(ctx):
     """Every kernel with its numbers; `launches` counts the main path that
     runs it: the f32 agent for crop_shared and pillar_scatter_max, the
     production tick for crop_shared_q8, scatter_max, scatter_add and
     conv2d_int8, the variants tick for crop_shared_q8_s2d and
-    pillar_scatter_max_bf16, the gather probe for take_along_rows."""
+    pillar_scatter_max_bf16, the gather probe for take_along_rows, the
+    distillation step (3 steps) for crop_shared_bwd and
+    pillar_scatter_max_bwd."""
     crop, scatter = ctx.get("crop", {}), ctx.get("scatter", {})
+    train = ctx.get("train_kernels", {})
     specs = (
         ("crop_shared", crop.get("float32"), "agent", "crop_shared.cu",
          "lav_tpu/core/warp_pallas.py:108"),
@@ -1626,6 +2011,10 @@ def kernels_line(ctx):
          "lav_tpu/nn/quant.py:246"),
         ("take_along_rows", ctx.get("gather"), "gather",
          "take_along_rows.cu", "scripts/exp_gather.py:28"),
+        ("crop_shared_bwd", train.get("crop_shared_bwd"), "train",
+         "crop_shared_bwd.cu", "lav_tpu/core/warp.py:213"),
+        ("pillar_scatter_max_bwd", train.get("pillar_scatter_max_bwd"),
+         "train", "pillar_scatter_max.cu", "lav_tpu/ops/pillar.py:519"),
     )
     rows = []
     for name, r, path, source, replaces in specs:

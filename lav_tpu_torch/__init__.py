@@ -9,10 +9,15 @@ built with `nvcc` for `sm_90a` at first use and bound with `ctypes`.
 Package layout:
   config.py  LAVConfig, v2_config, tiny_config (a copy)
   nn/        layers, ResNet, ERFNet, attention pooling (nn.Modules)
-  core/      geometry, affine crops (kernel `crop_shared`)
+  core/      geometry, affine crops (kernel `crop_shared`), the BEV seg
+             loss mask
   ops/       point painting, pillar featurizer (kernel `pillar_scatter_max`),
              peak decode
-  models/    LiDAR model, camera nets, UniPlanner inference
+  models/    LiDAR model, camera nets, UniPlanner inference and training
+             forward with its BEV teacher, the distillation losses
   agent/     EKF, PID, control, the batched agent tick, setup helper
-  utils/     device selection, kernel build/load, weight conversion
+  train/     the distillation train step (kernels `crop_shared_bwd`,
+             `pillar_scatter_max_bwd` in its backward)
+  utils/     device selection, kernel build/load, weight conversion, BN
+             state merge
 """

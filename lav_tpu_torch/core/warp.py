@@ -24,6 +24,14 @@ in (dy, dx, c) channel order, the input form of the crop ResNet's 4x4
 stride-1 conv1 (`nn/quant.py::conv2d_int8_s2d`): kernel
 `crop_shared_q8_s2d`, the same sums and rounding as `crop_shared_q8`; the
 plain version is `grid_sample_shared_q8` followed by `space_to_depth`.
+
+Training differentiates the f32 crop with respect to its source only, as
+lav_tpu's custom VJP `_grid_sample_shared_bwd` (`core/warp.py:213-229`)
+does: `CropShared` is the autograd Function around `crop_shared`, and its
+backward is kernel `crop_shared_bwd` (csrc/crop_shared_bwd.cu) on the
+card, `grid_sample_shared_bwd` on the CPU: each output pixel's gradient,
+times each tap's f32 hinge weight, is added into the source's gradient at
+the tap; the grid gets none.
 """
 
 from __future__ import annotations
@@ -170,6 +178,74 @@ def crop_shared(src, grid, q8_x_scale=None, s2d: bool = False):
     return out
 
 
+def grid_sample_shared_bwd(g, grid, H: int, W: int):
+    """Plain version of kernel `crop_shared_bwd`: g (B, K, Ho, Wo, C) f32,
+    grid (B, K, Ho, Wo, 2) f32 -> d_src (B, H, W, C) f32, the four taps of
+    each output pixel added in turn (lav_tpu's `_grid_sample_shared_bwd`)."""
+    B, K, Ho, Wo, C = g.shape
+    ix = (grid[..., 0] + 1.0) * 0.5 * (W - 1)
+    iy = (grid[..., 1] + 1.0) * 0.5 * (H - 1)
+    x0 = torch.clamp(torch.floor(ix), 0, W - 2)
+    y0 = torch.clamp(torch.floor(iy), 0, H - 2)
+    wy = [torch.clamp(1.0 - torch.abs(iy - (y0 + d)), min=0.0) for d in (0, 1)]
+    wx = [torch.clamp(1.0 - torch.abs(ix - (x0 + d)), min=0.0) for d in (0, 1)]
+    base = ((torch.arange(B, device=g.device)[:, None] * (H * W))
+            + (y0.long() * W + x0.long()).reshape(B, -1)).reshape(-1)
+    g_flat = g.reshape(-1, C)
+    d_src = g.new_zeros((B * H * W, C))
+    for dy in (0, 1):
+        for dx in (0, 1):
+            w = (wy[dy] * wx[dx]).reshape(-1, 1)
+            d_src.index_add_(0, base + (dy * W + dx), g_flat * w)
+    return d_src.reshape(B, H, W, C)
+
+
+def crop_shared_bwd(g, grid, H: int, W: int):
+    """Kernel `crop_shared_bwd` (contract of `grid_sample_shared_bwd`):
+    the f32 source gradient of `crop_shared`.  The kernel adds a tap with
+    atomics, in an order that changes from run to run, and skips a tap of
+    weight 0 (it adds g * 0 = 0 for a finite g).  CPU tensors take the
+    plain version."""
+    if g.device.type == "cpu":
+        return grid_sample_shared_bwd(g, grid, H, W)
+    if g.device.type != "cuda" or grid.device != g.device:
+        raise ValueError(f"crop_shared_bwd: g on {g.device}, grid on "
+                         f"{grid.device}; both must be on one CUDA device")
+    if g.dtype != torch.float32 or grid.dtype != torch.float32:
+        raise TypeError(f"crop_shared_bwd: g {g.dtype}, grid {grid.dtype} "
+                        "(both f32)")
+    if g.ndim != 5 or grid.shape != g.shape[:4] + (2,) or H < 2 or W < 2:
+        raise ValueError(f"crop_shared_bwd: g {tuple(g.shape)}, grid "
+                         f"{tuple(grid.shape)}, source {H}x{W}")
+    if not (g.is_contiguous() and grid.is_contiguous()):
+        raise ValueError("crop_shared_bwd: g and grid must be contiguous")
+    B, K, Ho, Wo, C = g.shape
+    d_src = g.new_zeros((B, H, W, C))
+    vec = 4 if C % 4 == 0 and g.data_ptr() % 16 == 0 else 1
+    native.launch(native.ENTRIES["crop_shared_bwd_f32"], g.get_device(),
+                  g.data_ptr(), grid.data_ptr(), d_src.data_ptr(), B, H, W,
+                  C, K, Ho, Wo, vec)
+    return d_src
+
+
+class CropShared(torch.autograd.Function):
+    """`crop_shared(src, grid)` with a gradient for the f32 source only
+    (`crop_shared_bwd`); the grid gets none, as in lav_tpu."""
+
+    @staticmethod
+    def forward(ctx, src, grid):
+        ctx.save_for_backward(grid)
+        ctx.hw = src.shape[1:3]
+        return crop_shared(src, grid)
+
+    @staticmethod
+    def backward(ctx, g):
+        (grid,) = ctx.saved_tensors
+        if g.dtype != torch.float32:
+            raise TypeError(f"crop_shared: no backward for {g.dtype} yet")
+        return crop_shared_bwd(g.contiguous(), grid, *ctx.hw), None
+
+
 def crop_feature_shared(features, rel_locs, rel_oris, *,
                         pixels_per_meter: float, crop_size: int,
                         offset_x: float = 0.0, offset_y: float = 0.75,
@@ -191,5 +267,23 @@ def crop_feature_shared(features, rel_locs, rel_oris, *,
                        crop_size, offset_x, offset_y)
     grid = affine_grid(theta, crop_size, crop_size)
     grid = grid.reshape(B, K, crop_size, crop_size, 2).contiguous()
-    crops = crop_shared(features.contiguous(), grid, q8_x_scale, s2d)
+    if features.requires_grad and torch.is_grad_enabled():
+        if q8_x_scale is not None:
+            raise ValueError("crop_feature_shared: int8 crops have no "
+                             "gradient")
+        crops = CropShared.apply(features.contiguous(), grid)
+    else:
+        crops = crop_shared(features.contiguous(), grid, q8_x_scale, s2d)
     return crops[0] if single else crops
+
+
+def crop_feature(features, rel_locs, rel_oris, *, pixels_per_meter: float,
+                 crop_size: int, offset_x: float = 0.0,
+                 offset_y: float = 0.75):
+    """One rotated crop per batch item (lav_tpu `core/warp.py:348`):
+    features (B, H, W, C), rel_locs (B, 2), rel_oris (B,) -> (B, crop,
+    crop, C); the K = 1 shared crop, which is the same function."""
+    return crop_feature_shared(
+        features, rel_locs[:, None], rel_oris[:, None],
+        pixels_per_meter=pixels_per_meter, crop_size=crop_size,
+        offset_x=offset_x, offset_y=offset_y)[:, 0]

@@ -1,9 +1,11 @@
-"""LiDAR perception model, inference (counterpart of
-`lav_tpu/models/lidar.py`): PointPillars, a three-stage strided conv
+"""LiDAR perception model (counterpart of `lav_tpu/models/lidar.py`): PointPillars, a three-stage strided conv
 backbone whose transposed-conv up-projections concatenate to a 6*nf
 half-resolution map, and four heads (center heatmap, box size,
 orientation, BEV segmentation).  LAV's Conv -> ReLU -> BN order (BN eps
-1e-3) is kept for weight parity.  lav_tpu's merged-head and 128-lane
+1e-3, momentum 0.01) is kept for weight parity.  In train mode every
+BatchNorm normalises with its batch's statistics (the pillar MLP's over
+the valid points only) and the pillar canvas is the differentiable
+canvas max of `ops/pillar.py`.  lav_tpu's merged-head and 128-lane
 canvas forms are TPU layout tactics with the same math; here each head
 runs on its own.
 
@@ -27,8 +29,10 @@ from torch import nn
 from lav_tpu_torch.nn import layers as L
 from lav_tpu_torch.nn import quant
 from lav_tpu_torch.ops.pillar import PointPillar
+from lav_tpu_torch.utils.tree import bn_state
 
 _BN_EPS = 1e-3
+_BN_MOMENTUM = 0.01   # LAV's BatchNorm2d(eps=1e-3, momentum=0.01)
 _STAGES = ((4, 1), (6, 2), (6, 2))  # (n_convs, channel multiplier)
 
 
@@ -36,7 +40,7 @@ class ConvBlock(nn.Module):
     def __init__(self, cin, cout, stride, gen=None):
         super().__init__()
         self.conv = L.Conv2d(cin, cout, 3, stride, 1, bias=False, gen=gen)
-        self.bn = L.BatchNorm(cout, eps=_BN_EPS)
+        self.bn = L.BatchNorm(cout, eps=_BN_EPS, momentum=_BN_MOMENTUM)
 
     def forward(self, x):
         return self.bn(F.relu(self.conv(x)))
@@ -48,7 +52,7 @@ class UpConvBlock(nn.Module):
         super().__init__()
         self.conv = L.ConvTranspose2d(cin, cout, ksize, stride, padding,
                                       output_padding, bias=False, gen=gen)
-        self.bn = L.BatchNorm(cout, eps=_BN_EPS)
+        self.bn = L.BatchNorm(cout, eps=_BN_EPS, momentum=_BN_MOMENTUM)
 
     def forward(self, x):
         return self.bn(F.relu(self.conv(x)))
@@ -58,7 +62,7 @@ class Head(nn.Module):
     def __init__(self, cin, cout, hidden=64, gen=None):
         super().__init__()
         self.conv = L.Conv2d(cin, hidden, 3, 1, 1, bias=False, gen=gen)
-        self.bn = L.BatchNorm(hidden, eps=_BN_EPS)
+        self.bn = L.BatchNorm(hidden, eps=_BN_EPS, momentum=_BN_MOMENTUM)
         self.up = L.ConvTranspose2d(hidden, cout, 3, 2, 1, 1, bias=True,
                                     gen=gen)
 
@@ -100,7 +104,8 @@ class LidarModel(nn.Module):
     (features (B, ny/2, nx/2, 6nf) NHWC, heatmap logits, sizemaps,
     orimaps, bev_seg), the four maps channel-first (B, c, ny, nx) in the
     points' dtype; bev_seg through a sigmoid in f32.  `use_pallas` picks
-    the pillar route (ops/pillar.py)."""
+    the pillar route of eval mode (ops/pillar.py); train mode has its own
+    and adds the BN state to the outputs."""
 
     def __init__(self, num_input: int, num_features: Sequence[int], *,
                  min_x: float, max_x: float, min_y: float, max_y: float,
@@ -115,8 +120,11 @@ class LidarModel(nn.Module):
         self.box_head = Head(6 * nf, 2, gen=gen)
         self.ori_head = Head(6 * nf, 2, gen=gen)
         self.seg_head = Head(6 * nf, 3, gen=gen)
+        self.eval()   # inference unless a caller asks for train mode
 
     def forward(self, points, valid, use_pallas: bool = False):
+        """In train mode the outputs are followed by the BN state
+        (`utils/tree.py::bn_state`) of this forward."""
         canvas = self.point_pillar(points, valid, use_pallas=use_pallas)
         feats = self.backbone(L.nhwc_to_nchw(canvas))
         heads = (self.center_head, self.box_head, self.ori_head,
@@ -127,5 +135,6 @@ class LidarModel(nn.Module):
             x_scale = torch.stack([quant.act_scale(h.conv, x_nhwc)
                                    for h in heads]).max()
         hm, box, ori, seg = (h(feats, x_scale=x_scale) for h in heads)
-        return (L.nchw_to_nhwc(feats), hm, box, ori,
-                torch.sigmoid(seg.float()))
+        out = (L.nchw_to_nhwc(feats), hm, box, ori,
+               torch.sigmoid(seg.float()))
+        return out + (bn_state(self),) if self.training else out

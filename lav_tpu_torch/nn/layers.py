@@ -8,8 +8,12 @@ PyTorch's own layout (OIHW convs, (in, out, kh, kw) transposed convs,
 arrays into them.
 
 Convolution modules take NCHW tensors (the models feed them channels_last
-memory); the models' public functions keep lav_tpu's NHWC layout.  Every
-module is inference-only: BatchNorm applies its running statistics.
+memory); the models' public functions keep lav_tpu's NHWC layout.
+BatchNorm applies its running statistics in eval mode, the mode a new
+module is in; in train mode (`.train()`) it normalises with the batch's
+statistics and records the updated running statistics without applying
+them (`utils/tree.py::merge_bn_state` applies them after the optimizer
+step).
 
 Initialisers follow torch's defaults (kaiming_uniform(a=sqrt(5)) weights,
 uniform(+-1/sqrt(fan_in)) biases, uniform(+-1/sqrt(H)) GRU) and draw from
@@ -167,28 +171,72 @@ class ConvTranspose2d(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over channel axis `dim` (1 for NCHW, -1 for
-    (..., C) point features): running stats and affine folded into one
-    per-channel scale/shift in f32, applied in the input dtype."""
+    """BatchNorm over channel axis `dim` (1 for NCHW, -1 for (..., C) point
+    features).
 
-    def __init__(self, c: int, eps: float = 1e-5, dim: int = 1):
+    Eval mode: running stats and affine folded into one per-channel
+    scale/shift in f32, applied in the input dtype.  Train mode
+    (lav_tpu `nn/layers.py::batchnorm`, train=True): statistics in f32
+    over every axis but `dim`, restricted to `mask` (broadcastable to x
+    without its channel axis) when given; normalised with the biased
+    variance; y = (x - mean) * rsqrt(var + eps) * scale + bias, cast to
+    the input dtype.  The updated running statistics, (1 - momentum) * old
+    + momentum * batch with the unbiased variance, are kept in `new_stats`
+    and not applied: a module called twice before `merge_bn_state` keeps
+    only its last call's update, computed from the old statistics, as
+    lav_tpu's state tree does (`utils/tree.py::merge_bn_state`)."""
+
+    def __init__(self, c: int, eps: float = 1e-5, dim: int = 1,
+                 momentum: float = 0.1):
         super().__init__()
         self.scale = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("mean", torch.zeros(c))
         self.register_buffer("var", torch.ones(c))
-        self.eps, self.dim = eps, dim
+        self.eps, self.dim, self.momentum = eps, dim, momentum
+        self.new_stats = None
+        self.eval()   # inference unless a caller asks for train mode
 
-    def forward(self, x):
+    def _channel_shape(self, x):
+        if self.dim == -1 or self.dim == x.ndim - 1:
+            return (-1,)
+        shape = [1] * x.ndim
+        shape[self.dim] = -1
+        return tuple(shape)
+
+    def forward(self, x, mask=None):
+        shape = self._channel_shape(x)
+        if self.training:
+            return self._train(x, mask, shape)
         inv = torch.rsqrt(self.var.float() + self.eps)
         scale = (self.scale.float() * inv).to(x.dtype)
         shift = (self.bias.float()
                  - self.mean.float() * self.scale.float() * inv).to(x.dtype)
-        if self.dim != -1 and self.dim != x.ndim - 1:
-            shape = [1] * x.ndim
-            shape[self.dim] = -1
-            scale, shift = scale.reshape(shape), shift.reshape(shape)
-        return x * scale + shift
+        return x * scale.reshape(shape) + shift.reshape(shape)
+
+    def _train(self, x, mask, shape):
+        dim = self.dim % x.ndim
+        axes = tuple(a for a in range(x.ndim) if a != dim)
+        xs = x.float()
+        if mask is None:
+            mean = xs.mean(dim=axes)
+            var = ((xs - mean.reshape(shape)) ** 2).mean(dim=axes)
+            n = float(math.prod(x.shape[a] for a in axes))
+        else:
+            m = mask.float().unsqueeze(dim)
+            n = torch.clamp(m.sum(), min=1.0)
+            mean = (xs * m).sum(dim=axes) / n
+            var = (((xs - mean.reshape(shape)) ** 2) * m).sum(dim=axes) / n
+        y = (xs - mean.reshape(shape)) * torch.rsqrt(var + self.eps).reshape(
+            shape)
+        with torch.no_grad():
+            unbiased = var * n / (torch.clamp(n - 1.0, min=1.0)
+                                  if mask is not None else max(n - 1.0, 1.0))
+            mom = self.momentum
+            self.new_stats = ((1 - mom) * self.mean + mom * mean,
+                              (1 - mom) * self.var + mom * unbiased)
+        y = y * self.scale.reshape(shape) + self.bias.reshape(shape)
+        return y.to(x.dtype)
 
 
 def _gru_cell(xi_t, h, w_hh, b_hh):

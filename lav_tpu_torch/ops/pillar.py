@@ -1,5 +1,5 @@
-"""Static-shape PointPillars featurizer, inference path (counterpart of
-`lav_tpu/ops/pillar.py`, `train=False`).
+"""Static-shape PointPillars featurizer (counterpart of
+`lav_tpu/ops/pillar.py`).
 
 Points are padded to a fixed capacity with a validity mask; pillar id =
 canvas_row * nx + canvas_col, with `ny*nx` the dump slot of invalid points;
@@ -25,6 +25,17 @@ exactly 0 (LAV's zero canvas).  Both of lav_tpu's routes are here:
     and are dropped, which gives the same canvas.  In bf16 NEG is -1e30
     rounded to bf16, and the canvas compares in bf16, as the Pallas kernel
     does.
+
+Train mode (lav_tpu's train=True route, `ops/pillar.py:507-522`): the
+decoration as in the production route and outside the gradient (lav_tpu's
+stop_gradient), the point MLP's BatchNorm on the batch statistics of the
+valid points, and the canvas as `CanvasMax`: forward kernel
+`pillar_scatter_max` in f32 (lav_tpu's where(keep, feat, -1e30) ->
+.at[pid].max over a -1e30 canvas -> where(> -1e30, ., 0), the invalid
+points dropped here instead of masked), backward kernel
+`pillar_scatter_max_bwd` (`pillar_scatter_max_bwd_plain` on the CPU),
+which splits a cell's gradient evenly among the points tying for its max,
+as JAX's scatter-max VJP does.
 
 Kernel `scatter_add` (csrc/pillar_scatter.cu) ports lav_tpu's Pallas
 `scatter_pallas` (ops/pillar_pallas2.py) with op="add"; kernels
@@ -128,6 +139,69 @@ def pillar_scatter_max(feat, pid, num_segments: int):
     return _scatter("pillar_scatter_max", _K2_ENTRY.get(feat.dtype),
                     pillar_scatter_max_plain, feat, pid, num_segments,
                     canvas=True)
+
+
+def pillar_scatter_max_bwd_plain(g, feat, pid, canvas):
+    """Plain version of kernel `pillar_scatter_max_bwd`: g (S, C) the
+    gradient of `pillar_scatter_max(feat, pid, S)`'s output `canvas` ->
+    d_feat (N, C) f32: g[pid[p], c] * (1 / n) where feat[p, c] equals
+    canvas[pid[p], c] and n points of the row tie there, else 0; dropped
+    ids give 0."""
+    S, C = canvas.shape
+    ok = (pid >= 0) & (pid < S)
+    s = torch.where(ok, pid.long(), torch.zeros_like(pid.long()))
+    tie = ok[:, None] & (feat == canvas[s])
+    n = canvas.new_zeros((S, C)).index_add_(0, s, tie.to(canvas.dtype))[s]
+    share = g[s] * (1.0 / torch.where(tie, n, torch.ones_like(n)))
+    return torch.where(tie, share, torch.zeros_like(share))
+
+
+def pillar_scatter_max_bwd(g, feat, pid, canvas):
+    """Kernel `pillar_scatter_max_bwd` (contract of
+    `pillar_scatter_max_bwd_plain`), f32.  CPU tensors take the plain
+    version."""
+    dev = feat.get_device()
+    if not (feat.is_cuda and feat.dtype is torch.float32
+            and g.dtype is torch.float32 and canvas.dtype is torch.float32
+            and pid.dtype is torch.int32 and feat.dim() == 2
+            and pid.shape == feat.shape[:1] and g.shape == canvas.shape
+            and canvas.dim() == 2 and canvas.shape[1] == feat.shape[1]
+            and all(t.get_device() == dev for t in (g, pid, canvas))
+            and all(t.is_contiguous() for t in (g, feat, pid, canvas))):
+        if feat.device.type == "cpu":
+            return pillar_scatter_max_bwd_plain(g, feat, pid, canvas)
+        raise ValueError(
+            f"pillar_scatter_max_bwd: g {g.dtype} {tuple(g.shape)}, feat "
+            f"{feat.dtype} {tuple(feat.shape)}, pid {pid.dtype} "
+            f"{tuple(pid.shape)}, canvas {canvas.dtype} "
+            f"{tuple(canvas.shape)}: f32 (int32 pid), contiguous, on one "
+            "CUDA device")
+    N, C = feat.shape
+    S = canvas.shape[0]
+    out = torch.empty_like(feat)
+    counts = torch.empty((S, C), dtype=torch.int32, device=feat.device)
+    native.launch(native.ENTRIES["pillar_scatter_max_bwd_f32"], dev,
+                  g.data_ptr(), feat.data_ptr(), pid.data_ptr(),
+                  canvas.data_ptr(), out.data_ptr(), N, C, S,
+                  counts.data_ptr())
+    return out
+
+
+class CanvasMax(torch.autograd.Function):
+    """`pillar_scatter_max(feat, pid, S)` with its gradient to feat
+    (`pillar_scatter_max_bwd`); pid gets none."""
+
+    @staticmethod
+    def forward(ctx, feat, pid, num_segments: int):
+        canvas = pillar_scatter_max(feat, pid, num_segments)
+        ctx.save_for_backward(feat, pid, canvas)
+        return canvas
+
+    @staticmethod
+    def backward(ctx, g):
+        feat, pid, canvas = ctx.saved_tensors
+        return (pillar_scatter_max_bwd(g.contiguous(), feat, pid, canvas),
+                None, None)
 
 
 # csrc/pillar_scatter_max.cu's kTile, kHot, kGroupPoints and kAlign
@@ -243,11 +317,11 @@ def scatter_add(feat, pid, num_segments: int):
 
 
 class PointPillar(nn.Module):
-    """Point MLP (linear -> eval BN -> ReLU per layer) + canvas max.
+    """Point MLP (linear -> BN -> ReLU per layer) + canvas max.
 
     forward(points (B, P, D), valid (B, P), use_pallas=False) -> canvas
     (B, ny, nx, C) in points' dtype (see the module note for the two
-    routes)."""
+    eval routes and the train route)."""
 
     def __init__(self, num_input: int, num_features: Sequence[int], *,
                  min_x: float, max_x: float, min_y: float, max_y: float,
@@ -263,6 +337,7 @@ class PointPillar(nn.Module):
                         pixels_per_meter=pixels_per_meter)
         self.nx = int((max_x - min_x) * pixels_per_meter)
         self.ny = int((max_y - min_y) * pixels_per_meter)
+        self.eval()   # inference unless a caller asks for train mode
 
     def forward(self, points, valid, use_pallas: bool = False):
         nx, ny = self.nx, self.ny
@@ -274,21 +349,27 @@ class PointPillar(nn.Module):
         # the canvas' ids: B * G (outside the canvas) for invalid points
         canvas_pid = torch.where(keep, pid + offs * G,
                                  torch.full_like(pid, B * G)).reshape(-1)
-        if use_pallas:     # the decoration sums' per-item dump slots
+        if use_pallas and not self.training:  # per-item dump slots
             S = B * (G + 1)
             pid_flat = (pid + offs * (G + 1)).reshape(-1).contiguous()
         else:              # B * G is the sums' dump row
             S = B * G + 1
             pid_flat = canvas_pid
         keep = keep.reshape(-1)
-        feat = decorate_points(
-            points.reshape(-1, D), pid_flat, keep, ix.reshape(-1),
-            iy.reshape(-1), min_x=self.geo["min_x"], min_y=self.geo["min_y"],
-            pixels_per_meter=self.geo["pixels_per_meter"], num_segments=S)
-        for i in range(self.num_layers):
+        with torch.no_grad():
+            feat = decorate_points(
+                points.reshape(-1, D), pid_flat, keep, ix.reshape(-1),
+                iy.reshape(-1), min_x=self.geo["min_x"],
+                min_y=self.geo["min_y"],
+                pixels_per_meter=self.geo["pixels_per_meter"],
+                num_segments=S)
+        for i in range(self.num_layers):   # train-mode BN: valid points
             feat = getattr(self, f"linear_{i}")(feat)
-            feat = F.relu(getattr(self, f"bn_{i}")(feat))
+            feat = F.relu(getattr(self, f"bn_{i}")(feat, mask=keep))
         C = feat.shape[-1]
-        kernel = pillar_scatter_max if use_pallas else scatter_max
-        canvas = kernel(feat.contiguous(), canvas_pid, B * G)
+        if self.training:
+            canvas = CanvasMax.apply(feat.contiguous(), canvas_pid, B * G)
+        else:
+            kernel = pillar_scatter_max if use_pallas else scatter_max
+            canvas = kernel(feat.contiguous(), canvas_pid, B * G)
         return canvas.reshape(B, ny, nx, C)

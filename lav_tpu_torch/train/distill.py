@@ -1,0 +1,244 @@
+"""Stage-2 trainer: LiDAR perception plus distillation from the frozen BEV
+teacher (counterpart of `lav_tpu/train/distill.py`).
+
+The losses (`make_distill_loss_fn`): CenterNet-style detection, BEV
+segmentation BCE (v2: weighted by a Gaussian around the ego), and motion
+losses distilled from the teacher inside `uniplanner_forward`.  Modes, as
+LAV's --perceive-only / --motion-only flags:
+  'full'          mot + det + seg (v1) or mot + (det + seg) *
+                  perception_weight (v2)
+  'perceive_only' det + seg
+  'motion_only'   mot only
+
+The step (`make_full_train_step`) is lav_tpu's value_and_grad + optax.adam
++ merge_bn_state as PyTorch does it: backward, `torch.optim.Adam` (the
+same update, m_hat / (sqrt(v_hat) + eps), no weight decay; `adam`), then
+the BN running statistics of the forward are written
+(`utils/tree.py::merge_bn_state`).  The teacher's parameters take no
+gradient, and the never-evaluated `other` cast bank gets none either, so
+Adam leaves both as they are, as optax does with their zero gradients.
+`grad_norm` is optax's global norm, over every gradient.  The step runs
+where the models and the batch are: `distill_setup` puts them on the card
+unless asked for the CPU.  Left out: lav_tpu's `remat`, its scoped
+student-crop checkpoint, and a compute dtype other than f32.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from lav_tpu_torch.config import LAVConfig, v2_config
+from lav_tpu_torch.core.heatmap import build_seg_mask
+from lav_tpu_torch.models import losses
+from lav_tpu_torch.models.lidar import LidarModel
+from lav_tpu_torch.models.planner import (
+    UniPlanner, draw_noise, uniplanner_forward,
+)
+from lav_tpu_torch.utils.device import resolve_device
+from lav_tpu_torch.utils.tree import merge_bn_state
+
+MODES = ("full", "perceive_only", "motion_only")
+
+
+def make_distill_loss_fn(cfg: LAVConfig, v2: bool = False,
+                         mode: str = "full"):
+    """loss_terms(preds, out, batch) -> (loss, metrics), with preds =
+    (hm, size, ori, pred_bev) the lidar model's f32 maps and out the
+    `uniplanner_forward` outputs (lav_tpu `make_distill_loss_fn`)."""
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r}: one of {MODES}")
+    # v1 trains BEV channels [0, 3, 4], v2 [0, 1, 2]
+    seg_ch = (0, 1, 2) if v2 else (0, 3, 4)
+
+    def loss_terms(preds, out, batch):
+        hm, size, ori, pred_bev = preds
+        dev = hm.device
+        cmds = batch["cmds"].long()
+        hm_l, box_l, ori_l = losses.det_loss(
+            hm, batch["heatmaps"], size, batch["sizemaps"], ori,
+            batch["orimaps"])
+        det_l = hm_l + cfg.box_weight * box_l + cfg.ori_weight * ori_l
+
+        seg_tgt = torch.stack([batch["bev"][..., c] for c in seg_ch], dim=1)
+        seg_bce = losses.bce(pred_bev, seg_tgt)
+        if v2:
+            W, H = cfg.ny, cfg.nx
+            cx = W / 2.0 + (cfg.min_y + cfg.max_y) / 2.0 * cfg.pixels_per_meter
+            cy = H / 2.0 + (cfg.min_x + cfg.max_x) / 2.0 * cfg.pixels_per_meter
+            seg_mask = build_seg_mask(H, W, cx, cy, device=dev)[None, None]
+            seg_l = (seg_bce * seg_mask).mean() * cfg.seg_weight
+        else:
+            seg_l = seg_bce.mean() * cfg.seg_weight
+
+        if v2:
+            # distil the plan from the teacher's last-iteration plan at the
+            # GT command, each item weighted by its command's branch weight
+            expert_plan = losses.gather_cmd(out.ego_plan_locs_expert[:, -1],
+                                            cmds)
+            bw = (None if not cfg.branch_weights else torch.tensor(
+                cfg.branch_weights, dtype=torch.float32, device=dev)[cmds])
+            plan_l = losses.plan_loss_all_cmds(
+                out.ego_plan_locs, expert_plan.detach(), item_weights=bw)
+        else:
+            # LAV's quirk: the raw ego future, though the plan is in the
+            # jittered frame
+            plan_l = losses.plan_loss_all_cmds(out.ego_plan_locs,
+                                               batch["ego_locs"][:, 1:])
+        if cfg.distill:
+            cast_l = losses.distill_l1(out.ego_cast_locs,
+                                       out.ego_cast_locs_expert)
+            other_l = losses.distill_l1(out.other_cast_locs,
+                                        out.other_cast_locs_expert,
+                                        out.car_valid)
+            cmd_l = losses.cmd_distill_bce(out.other_cast_cmds,
+                                           out.other_cast_cmds_expert,
+                                           out.car_valid)
+        else:
+            sel = losses.gather_cmd(out.ego_cast_locs, cmds)
+            cast_l = losses.masked_mean(
+                torch.abs(sel - batch["ego_locs"][:, 1:]).mean(dim=(1, 2)),
+                batch["bras"] == 0)
+            other_l = losses.other_cast_loss_min_mode(
+                out.other_cast_locs, out.other_locs, out.car_valid)
+            cmd_l = losses.cmd_bce(out.ego_cast_cmds, cmds, cfg.num_cmds,
+                                   smooth=cfg.cmd_smooth)
+        ow = cfg.other_weight if cfg.use_others_to_train else 0.0
+        mot_l = plan_l + cast_l + other_l * ow + cmd_l * cfg.cmd_weight
+
+        if mode == "perceive_only":
+            loss = det_l + seg_l
+        elif mode == "motion_only":
+            loss = mot_l
+        elif v2:
+            loss = mot_l + (det_l + seg_l) * cfg.perception_weight
+        else:
+            loss = mot_l + det_l + seg_l
+        metrics = dict(loss=loss, hm_loss=hm_l, box_loss=box_l,
+                       ori_loss=ori_l, seg_loss=seg_l, plan_loss=plan_l,
+                       ego_cast_loss=cast_l, other_cast_loss=other_l,
+                       cmd_loss=cmd_l)
+        return loss, metrics
+
+    return loss_terms
+
+
+def make_distill_forward(cfg: LAVConfig, v2: bool = False,
+                         mode: str = "full"):
+    """forward(models, batch, noise) -> (loss, metrics): the lidar model,
+    the student with its teacher, and the losses, in the models' current
+    mode (lav_tpu `make_distill_forward` with train=True is the models in
+    train mode).  `models` as `distill_models` builds it; noise from
+    `planner.draw_noise`."""
+    loss_terms = make_distill_loss_fn(cfg, v2=v2, mode=mode)
+
+    def forward(models, batch, noise):
+        feats, hm, size, ori, pred_bev = models["lidar_model"](
+            batch["lidar"], batch["lidar_valid"])[:5]
+        out = uniplanner_forward(
+            models["uniplanner"], cfg, feats, batch["bev"],
+            batch["ego_locs"], batch["locs"], batch["oris"], batch["nxps"],
+            batch["typs"], noise)
+        preds = (hm.float(), size.float(), ori.float(), pred_bev.float())
+        return loss_terms(preds, out, batch)
+
+    return forward
+
+
+def make_full_train_step(cfg: LAVConfig, v2: bool = False,
+                         mode: str = "full"):
+    """step(models, optimizer, batch, gen=None, noise=None) -> metrics:
+    one optimizer step in train mode.  The forward's noise is drawn from
+    the CPU `torch.Generator` `gen` unless `noise` is given.  metrics holds
+    the loss terms and `grad_norm`, as 0-dim tensors on the models'
+    device (nothing waits for the device)."""
+    forward = make_distill_forward(cfg, v2=v2, mode=mode)
+
+    def step(models, optimizer, batch, gen=None, noise=None):
+        models.train()
+        if noise is None:
+            B, N = batch["typs"].shape
+            noise = draw_noise(gen, B, N - 1, cfg.max_num_cars_student,
+                               device=batch["typs"].device)
+        optimizer.zero_grad(set_to_none=True)
+        loss, metrics = forward(models, batch, noise)
+        loss.backward()
+        grads = [p.grad for p in models.parameters() if p.grad is not None]
+        metrics["grad_norm"] = torch.sqrt(
+            torch.stack([(g * g).sum() for g in grads]).sum())
+        optimizer.step()
+        merge_bn_state(models)
+        return {k: v.detach() for k, v in metrics.items()}
+
+    return step
+
+
+def distill_models(cfg: LAVConfig, gen=None) -> nn.ModuleDict:
+    """{'lidar_model', 'uniplanner' (with its teacher)}, lav_tpu's params
+    tree of the step, from the port's initialisers on `gen`."""
+    geo = dict(min_x=cfg.min_x, max_x=cfg.max_x, min_y=cfg.min_y,
+               max_y=cfg.max_y, pixels_per_meter=cfg.pixels_per_meter)
+    return nn.ModuleDict(dict(
+        lidar_model=LidarModel(cfg.num_input, cfg.num_features, **geo,
+                               gen=gen),
+        uniplanner=UniPlanner(cfg, gen=gen, teacher=True)))
+
+
+def adam(models: nn.Module, lr: float = 3e-4) -> torch.optim.Adam:
+    """optax.adam(lr) over the trainable parameters: betas (0.9, 0.999),
+    eps 1e-8 outside the square root, no weight decay."""
+    return torch.optim.Adam([p for p in models.parameters()
+                             if p.requires_grad], lr=lr, betas=(0.9, 0.999),
+                            eps=1e-8)
+
+
+def make_batch(cfg: LAVConfig, batch_size: int, max_points: int,
+               seed: int = 0, device=None) -> dict:
+    """A random batch drawn as lav_tpu's `utils/bench_train.py::bench_full`
+    draws it, from numpy's default_rng(seed), on `device` (default the
+    card)."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    bs, T, N, C = batch_size, cfg.num_plan, cfg.max_objs, \
+        cfg.bev_input_channels
+    H, W = cfg.ny, cfg.nx
+    f32 = np.float32
+    arrays = dict(
+        lidar=rng.uniform(-10, 40, (bs, max_points, cfg.num_input - 5)),
+        heatmaps=rng.uniform(0, 1, (bs, 2, H, W)),
+        sizemaps=rng.uniform(0, 8, (bs, 2, H, W)),
+        orimaps=rng.uniform(-1, 1, (bs, 2, H, W)),
+        bev=(rng.uniform(size=(bs, H, W, C)) > 0.5),
+        ego_locs=rng.normal(size=(bs, T + 1, 2)),
+        locs=rng.normal(size=(bs, N, T + 1, 2)),
+    )
+    batch = {k: torch.from_numpy(v.astype(f32)).to(dev)
+             for k, v in arrays.items()}
+    batch.update(
+        lidar_valid=torch.ones((bs, max_points), dtype=torch.bool,
+                               device=dev),
+        cmds=torch.zeros((bs,), dtype=torch.int32, device=dev),
+        nxps=torch.zeros((bs, 2), device=dev),
+        bras=torch.zeros((bs,), dtype=torch.int32, device=dev),
+        oris=torch.zeros((bs, N), device=dev),
+        typs=torch.ones((bs, N), dtype=torch.int32, device=dev))
+    return batch
+
+
+def distill_setup(batch_size: int = 4, max_points: int = 16384,
+                  device=None, seed: int = 0, cfg: LAVConfig = None,
+                  v2: bool = True, mode: str = "full", lr: float = 3e-4):
+    """The v2 distillation step at full width (`v2_config()` unless `cfg`)
+    with weights from `seed`, Adam(lr) and a `make_batch` batch, on
+    `device` (default the card; raises without one unless 'cpu').
+    Returns (step, models, optimizer, batch, gen, cfg), gen the CPU
+    generator the step draws its noise from (seeded with seed + 1)."""
+    dev = resolve_device(device)
+    cfg = cfg or v2_config()
+    models = distill_models(cfg, torch.Generator().manual_seed(seed)).to(dev)
+    optimizer = adam(models, lr)
+    batch = make_batch(cfg, batch_size, max_points, seed, dev)
+    step = make_full_train_step(cfg, v2=v2, mode=mode)
+    return (step, models, optimizer, batch,
+            torch.Generator().manual_seed(seed + 1), cfg)

@@ -77,6 +77,12 @@ ENTRIES = {e.symbol: e for e in (
     Entry("pillar_scatter_max", "scatter_max_bf16", "scatter_max", _CANVAS),
     Entry("pillar_scatter_max", "scatter_max_f32", "scatter_max", _CANVAS),
     Entry("pillar_scatter", "scatter_add_f32", "scatter_add", _SCATTER),
+    # g, grid, d_src, B, H, W, C, K, Ho, Wo, vec
+    Entry("crop_shared_bwd", "crop_shared_bwd_f32", "crop_shared_bwd",
+          (_P,) * 3 + (_I,) * 8),
+    # g, feat, pid, canvas, d_feat, n_points, C, segments, counts
+    Entry("pillar_scatter_max", "pillar_scatter_max_bwd_f32",
+          "pillar_scatter_max_bwd", (_P,) * 5 + (_LL, _I, _LL, _P)),
     # x, w, w_scale, x_scale, bias (or NULL), out, plan (int[591])
     *(Entry("conv2d_int8", f"conv2d_int8_{dt}", "conv2d_int8", (_P,) * 7)
       for dt in ("bf16", "f32")),

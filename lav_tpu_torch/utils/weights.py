@@ -18,7 +18,11 @@ leaf layer converts its arrays to PyTorch's layout:
   GRUBank         the stacked (n, ...) forms of the GRU arrays
   LinearBank      w (n, in, out)         -> (n, out, in)
 
-Keys a module lists in `jax_unused` (training-only parts) are skipped.
+Keys a module lists in `jax_unused` (training-only parts) are skipped:
+an inference `UniPlanner` skips the teacher `bev_planner` and the
+never-evaluated `other` cast bank, which `UniPlanner(cfg, teacher=True)`
+(the distillation step's, `train/distill.py`) loads like every other
+leaf; the `BrakeModel` skips its auxiliary seg head.
 Every other key must have a counterpart and every parameter and buffer
 must be filled, or the load raises.  int8 leaves stay int8; every other
 leaf is converted to f32.

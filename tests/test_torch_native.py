@@ -45,6 +45,22 @@ def test_entries_match_the_c_sources():
         assert [*entry.argtypes, ctypes.c_void_p] == sigs[symbol], symbol
 
 
+def test_the_backward_entries_are_declared_as_their_sources_define_them():
+    """The distillation step's two backward kernels: crop_shared_bwd_f32
+    (g, grid, d_src, B, H, W, C, K, Ho, Wo, vec) in its own source, and
+    pillar_scatter_max_bwd_f32 (g, feat, pid, canvas, d_feat, n_points, C,
+    segments, counts) beside the canvas max it differentiates."""
+    sigs = _c_signatures()
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    crop = native.ENTRIES["crop_shared_bwd_f32"]
+    canvas = native.ENTRIES["pillar_scatter_max_bwd_f32"]
+    assert (crop.source, crop.kernel) == ("crop_shared_bwd", "crop_shared_bwd")
+    assert (canvas.source, canvas.kernel) == ("pillar_scatter_max",
+                                              "pillar_scatter_max_bwd")
+    assert sigs["crop_shared_bwd_f32"] == [P] * 3 + [I] * 8 + [P]
+    assert sigs["pillar_scatter_max_bwd_f32"] == [P] * 5 + [LL, I, LL, P, P]
+
+
 class _StubLib:
     """Stands in for a loaded kernel library: each symbol is a C function
     pointer to a Python callback that reads every argument as a 64-bit

@@ -34,6 +34,35 @@ def assert_close(name, got, want, atol, rtol=0.0):
                                err_msg=name)
 
 
+def jax_tree(module):
+    """The lav_tpu params tree (numpy arrays) of a port module: the
+    inverse of lav_tpu_torch/utils/weights.py's conversions, so that a
+    test can start both packages from the port's fast initialisers."""
+    from lav_tpu_torch.nn import layers as L
+
+    def a(t, perm=None):
+        t = t.detach()
+        return (t if perm is None else t.permute(*perm)).numpy().copy()
+
+    kind = type(module)
+    if kind in (L.Linear, L.Conv2d, L.ConvTranspose2d, L.LinearBank):
+        perm = {L.Linear: (1, 0), L.Conv2d: (2, 3, 1, 0),
+                L.ConvTranspose2d: (2, 3, 0, 1),
+                L.LinearBank: (0, 2, 1)}[kind]
+        d = {"w": a(module.w, perm)}
+        if module.b is not None:
+            d["b"] = a(module.b)
+        return d
+    if kind is L.BatchNorm:
+        return {k: a(getattr(module, k)) for k in ("scale", "bias", "mean",
+                                                    "var")}
+    if kind in (L.GRU, L.GRUBank):
+        sw = tuple(range(module.w_ih.ndim - 2)) + (-1, -2)
+        return {"w_ih": a(module.w_ih, sw), "w_hh": a(module.w_hh, sw),
+                "b_ih": a(module.b_ih), "b_hh": a(module.b_hh)}
+    return {name: jax_tree(child) for name, child in module.named_children()}
+
+
 def summarise(path):
     """Max abs error and tolerance per check name, as markdown rows."""
     worst = {}
