@@ -79,13 +79,18 @@ Phases, each printing its own line and raising on failure:
           their plain versions: crop_shared_bwd on the student's crops of
           a step (4 items, 4 other-car crops and the ego's, 96x96 from a
           160x160x384 map; one straddling the border, one wholly outside),
-          per cell within CROP_BWD_RTOL of its sum of |g w|, and a crop
-          outside adding nothing; pillar_scatter_max_bwd on the inputs one
-          step (4 x 16384 points) hands it and on crafted ties (2, 3 and
-          40 equal maxima, ties at 0), dropped ids and empty rows, exact;
-          host-paced and device-only ms and host us per call beside the
-          library's gradient (F.grid_sample's input gradient by autograd;
-          autograd through scatter_reduce "amax", which splits ties too)
+          per cell within CROP_BWD_RTOL of its sum of |g w|, two calls
+          equal bit for bit, a crop outside adding nothing, and on crops
+          turned by 0, pi/4, pi/2, 3pi/4, pi and -3pi/4, crop 64 from 160,
+          crops straddling each border, a 157x163 source and C = 6;
+          pillar_scatter_max_bwd on the inputs one step (4 x 16384 points)
+          hands it (the forward's sort among them, read as the backward
+          reads it) and on crafted ties (2, 3 and 40 equal maxima, ties at
+          0), dropped ids, empty rows and a hot row of 5,000 points, exact,
+          on the forward's sort and sorting itself; host-paced and
+          device-only ms and host us per call beside the library's
+          gradient (F.grid_sample's input gradient by autograd; autograd
+          through scatter_reduce "amax", which splits ties too)
   train   the v2 distillation step (lav_tpu.train.distill,
           make_full_train_step(v2_config(), Adam(3e-4), v2=True,
           mode="full"), f32) at full width: step 1 at B = 2 on the card
@@ -151,9 +156,9 @@ SCATTER_ADD_RTOL = 1e-6     # of the pillar's sum of |v|: atomics add in
 CROP_BWD_RTOL = 4e-6        # of a cell's sum of |g w|: up to ~60 terms
                             # added in any order, (n - 1) 2^-24 each
 TRAIN_LOSS_RTOL = 1e-4      # card vs CPU step: cuDNN's and the CPU's conv
-TRAIN_GNORM_RTOL = 1e-2     # sums, atomics in crop_shared_bwd and
-TRAIN_LEAF_L2 = 5e-2        # scatter_add, amplified by train-mode BN (the
-                            # card differs from itself run to run)
+TRAIN_GNORM_RTOL = 1e-2     # sums, crop_shared_bwd's order and
+TRAIN_LEAF_L2 = 5e-2        # scatter_add's atomics, amplified by train-mode
+                            # BN (the card differs from itself run to run)
 AGENT_ATOL = 1e-3           # cuDNN vs CPU conv summation order, f32
 AGENT_RTOL = 1e-3
 PROD_ATOL = 3e-2            # the int8 golden's (test_golden_production.py)
@@ -1660,10 +1665,63 @@ def _student_crop_grids(torch, dev, B=NUM_EGO_TRAIN):
     return grids
 
 
+def _crop_bwd_check(torch, label, g, gr, H, W):
+    """crop_shared_bwd(g, gr) against its plain version, per cell within
+    CROP_BWD_RTOL of the cell's sum of |g * w|; -> max abs error."""
+    from lav_tpu_torch.core.warp import crop_shared_bwd, grid_sample_shared_bwd
+
+    out = crop_shared_bwd(g, gr, H, W)
+    ref = grid_sample_shared_bwd(g, gr, H, W)
+    mag = grid_sample_shared_bwd(g.abs(), gr, H, W)
+    torch.cuda.synchronize()
+    excess = ((out - ref).abs() - CROP_BWD_RTOL * mag).max().item()
+    err = (out - ref).abs().max().item()
+    log("train_kernels", f"crop_shared_bwd {label}: max_abs_err {err:.3e}, "
+        f"max |d_src| {ref.abs().max().item():.3f}, cells reached "
+        f"{(mag.amax(-1) > 0).float().mean().item():.3f}, excess over "
+        f"{CROP_BWD_RTOL:g} x sum|g w| {excess:.3e} (must be <= 0)")
+    if not (excess <= 0 and torch.isfinite(out).all()):
+        raise AssertionError(f"crop_shared_bwd ({label}) disagrees with "
+                             "plain")
+    return err
+
+
+def _crop_bwd_grids(torch, dev):
+    """(label, grid, H, W, C) of crops the step's do not cover: rotations
+    of 0, pi/4, pi/2, 3pi/4, pi and -3pi/4 at the step's scale (96 from
+    160), crop 64 from 160, crops straddling each border (and the corner
+    every far tap is clamped to), a 157 x 163 source, and C = 6 (the
+    scalar path)."""
+    from lav_tpu_torch.core.warp import affine_grid, crop_theta
+
+    def grid(H, W, crop, locs, oris):
+        theta = crop_theta(torch.tensor(locs, dtype=torch.float32),
+                           torch.tensor(oris, dtype=torch.float32), H, W,
+                           2.0, crop, 0.0, 0.75)
+        return affine_grid(theta, crop, crop)[None].to(dev).contiguous()
+
+    turns = [0.0, math.pi / 4, math.pi / 2, 3 * math.pi / 4, math.pi,
+             -3 * math.pi / 4]
+    locs = [[(-1) ** i * 3.0, 2.0 - i] for i in range(6)]
+    edges = [[38.0, 0.0], [-38.0, 0.0], [0.0, 38.0], [0.0, -38.0],
+             [38.0, 38.0]]
+    return [("rotations", grid(160, 160, 96, locs, turns), 160, 160, 384),
+            ("crop 64 from 160", grid(160, 160, 64, locs[:4], turns[:4]),
+             160, 160, 384),
+            ("border straddles", grid(160, 160, 96, edges,
+                                      [0.3, -2.0, 1.2, 2.8, 0.0]),
+             160, 160, 384),
+            ("157 x 163", grid(157, 163, 96, locs[:3] + edges[:2],
+                               turns[:5]), 157, 163, 384),
+            ("C = 6", grid(160, 160, 96, locs[:3] + edges[:2], turns[:5]),
+             160, 160, 6)]
+
+
 def _crop_bwd_case(torch, ctx, dev):
     """Kernel crop_shared_bwd on the student's two calls of a step (K_TRAIN
-    crops, then the ego's) against its plain version, per cell within
-    CROP_BWD_RTOL of the cell's sum of |g * w|; timed as the pair."""
+    crops, then the ego's) and on `_crop_bwd_grids` against its plain
+    version; a crop wholly outside adds nothing; two calls are equal bit
+    for bit; timed as the step's pair."""
     import torch.nn.functional as F
 
     from lav_tpu_torch.core.warp import crop_shared_bwd, grid_sample_shared_bwd
@@ -1676,24 +1734,21 @@ def _crop_bwd_case(torch, ctx, dev):
           for gr in grids]
     worst = 0.0
     for gr, g in zip(grids, gs):
-        out = crop_shared_bwd(g, gr, H, W)
-        ref = grid_sample_shared_bwd(g, gr, H, W)
-        mag = grid_sample_shared_bwd(g.abs(), gr, H, W)
-        torch.cuda.synchronize()
-        excess = ((out - ref).abs() - CROP_BWD_RTOL * mag).max().item()
-        err = (out - ref).abs().max().item()
-        worst = max(worst, err)
-        log("train_kernels", f"crop_shared_bwd K={gr.shape[1]}: max_abs_err "
-            f"{err:.3e}, max |d_src| {ref.abs().max().item():.3f}, excess "
-            f"over {CROP_BWD_RTOL:g} x sum|g w| {excess:.3e} (must be <= 0)")
-        if not (excess <= 0 and torch.isfinite(out).all()):
-            raise AssertionError("crop_shared_bwd disagrees with plain")
+        worst = max(worst, _crop_bwd_check(torch, f"K={gr.shape[1]}", g, gr,
+                                           H, W))
+        if not torch.equal(crop_shared_bwd(g, gr, H, W),
+                           crop_shared_bwd(g, gr, H, W)):
+            raise AssertionError("crop_shared_bwd is not bit-reproducible")
         if gr.shape[1] > 1:   # the crop wholly outside adds nothing
             alone = crop_shared_bwd(g[:1, 1:2].contiguous(),
                                     gr[:1, 1:2].contiguous(), H, W)
             if alone.abs().max().item() != 0.0:
                 raise AssertionError("a crop outside the source added to it")
-        del out, ref, mag
+    log("train_kernels", "crop_shared_bwd: two calls on the step's inputs "
+        "equal bit for bit (must be)")
+    for label, gr, h, w, c in _crop_bwd_grids(torch, dev):
+        g = torch.randn(tuple(gr.shape[:4]) + (c,), generator=gen).to(dev)
+        worst = max(worst, _crop_bwd_check(torch, label, g, gr, h, w))
 
     def kernel():
         return [crop_shared_bwd(g, gr, H, W) for g, gr in zip(gs, grids)]
@@ -1755,9 +1810,10 @@ def _timed(torch, ctx, name, kernel, plain, lib):
 
 
 def _canvas_bwd_inputs(torch, ctx):
-    """The (g, feat, pid, canvas) that one distillation step (B =
+    """The (g, feat, pid, canvas, sort) that one distillation step (B =
     NUM_EGO_TRAIN, MAX_POINTS_TRAIN points an item) hands kernel
-    pillar_scatter_max_bwd, taken by wrapping the wrapper."""
+    pillar_scatter_max_bwd, taken by wrapping the wrapper; the step must
+    hand it the forward's sort."""
     from lav_tpu_torch.ops import pillar
     from lav_tpu_torch.train.distill import distill_setup
 
@@ -1766,7 +1822,7 @@ def _canvas_bwd_inputs(torch, ctx):
     real, seen = pillar.pillar_scatter_max_bwd, []
 
     def spy(*args):
-        seen.append(tuple(a.clone() for a in args))
+        seen.append(tuple(None if a is None else a.clone() for a in args))
         return real(*args)
 
     pillar.pillar_scatter_max_bwd = spy
@@ -1774,18 +1830,21 @@ def _canvas_bwd_inputs(torch, ctx):
         step(models, opt, batch, gen)
     finally:
         pillar.pillar_scatter_max_bwd = real
-    if len(seen) != 1:
+    if len(seen) != 1 or len(seen[0]) != 5 or seen[0][4] is None:
         raise AssertionError(f"the step ran the canvas backward "
-                             f"{len(seen)} times")
+                             f"{len(seen)} times, or without the forward's "
+                             "sort")
     del step, models, opt, batch
     torch.cuda.empty_cache()
     return seen[0]
 
 
 def _canvas_bwd_cases(torch, dev):
-    """Crafted (g, feat, pid, canvas) cases: ties of 2, 3 and 40 equal
-    maxima, ties at 0, dropped ids (negative and past S), empty rows, C = 4
-    (the vector path) and C = 6 (the scalar path)."""
+    """Crafted (label, g, feat, pid, canvas, sort) cases: ties of 2, 3 and
+    40 equal maxima, ties at 0, dropped ids (negative and past S), empty
+    rows, C = 4 (the vector path), C = 6 (the scalar path) and 64; and one
+    hot row of 5,000 points (above CANVAS_HOT: counted by whole blocks in
+    chunks) of which 300 tie in every channel."""
     from lav_tpu_torch.ops.pillar import pillar_scatter_max
 
     g = torch.Generator(device="cpu").manual_seed(9)
@@ -1805,16 +1864,54 @@ def _canvas_bwd_cases(torch, dev):
         pid[60:70] = -1
         pid[70:80] = S                   # dropped ids
         feat[60:80] = 5.0
+        cases.append((f"crafted C={C}", S, feat, pid))
+    S, N = 4 * 102400, 4 * MAX_POINTS_TRAIN
+    feat = torch.relu(torch.randn((N, 64), generator=g))
+    pid = torch.randint(0, S, (N,), generator=g)
+    pid[:5000] = 17                      # one hot row
+    feat[:300] = 9.0                     # 300 of its points tie, above
+                                         # every other value
+    pid[5000:5100] = -1                  # dropped ids
+    cases.append(("a hot row of 5000 points", S, feat, pid))
+    out = []
+    for label, S, feat, pid in cases:
         feat, pid = feat.to(dev), pid.to(torch.int32).to(dev)
-        canvas = pillar_scatter_max(feat, pid, S)
-        grad = torch.randn((S, C), generator=g).to(dev)
-        cases.append((f"crafted C={C}", grad, feat, pid, canvas))
-    return cases
+        canvas, sort = pillar_scatter_max(feat, pid, S, keep_sort=True)
+        grad = torch.randn((S, feat.shape[1]), generator=g).to(dev)
+        out.append((label, grad, feat, pid, canvas, sort))
+    return out
+
+
+def _canvas_sort_check(torch, label, feat, pid, canvas, sort):
+    """The forward's scratch read as the backward reads it: each row's
+    offset and its points (`read_canvas_sort`), the chunk in its meta."""
+    from lav_tpu_torch.ops.pillar import (
+        _i32, canvas_chunk, canvas_layout, read_canvas_sort,
+    )
+
+    (N, C), S = feat.shape, canvas.shape[0]
+    offsets, idx = read_canvas_sort(sort, N, C, S, 4)
+    p = pid.long()
+    ok = (p >= 0) & (p < S)
+    counts = torch.bincount(p[ok], minlength=S)
+    rows = torch.repeat_interleave(torch.arange(S, device=p.device),
+                                   offsets.diff())
+    chunk = _i32(sort, canvas_layout(N, C, S, 4)["meta"], 3)[2].item()
+    good = (torch.equal(offsets[1:], counts.cumsum(0)) and offsets[0] == 0
+            and torch.equal(p[idx], rows)
+            and torch.equal(torch.sort(idx).values,
+                            torch.nonzero(ok).flatten())
+            and (feat.data_ptr() % 16 or chunk == canvas_chunk(C, 4)))
+    if not good:
+        raise AssertionError(f"pillar_scatter_max's sort ({label}) is not "
+                             "laid out as read_canvas_sort reads it")
 
 
 def _canvas_bwd_case(torch, ctx, dev):
-    """Kernel pillar_scatter_max_bwd against its plain version, exact, on
-    the step's own inputs and on crafted ties; timed on the step's."""
+    """Kernel pillar_scatter_max_bwd against its plain version, exact, by
+    both routes (on the forward's sort, and sorting itself), on the step's
+    own inputs, on crafted ties and on a hot row; the forward's sort as
+    the backward reads it; timed on the step's, by both routes."""
     from lav_tpu_torch.ops.pillar import (
         NEG, pillar_scatter_max_bwd, pillar_scatter_max_bwd_plain,
     )
@@ -1822,24 +1919,29 @@ def _canvas_bwd_case(torch, ctx, dev):
     step_args = _canvas_bwd_inputs(torch, ctx)
     for label, *args in [("the step's", *step_args)] + _canvas_bwd_cases(
             torch, dev):
-        out = pillar_scatter_max_bwd(*args)
-        ref = pillar_scatter_max_bwd_plain(*args)
+        g, feat, pid, canvas, sort = args
+        _canvas_sort_check(torch, label, feat, pid, canvas, sort)
+        ref = pillar_scatter_max_bwd_plain(g, feat, pid, canvas)
+        routes = {"sorted": pillar_scatter_max_bwd(g, feat, pid, canvas,
+                                                   sort),
+                  "standalone": pillar_scatter_max_bwd(g, feat, pid, canvas)}
         torch.cuda.synchronize()
-        g, feat, pid, canvas = args
         S = canvas.shape[0]
         ok = (pid >= 0) & (pid < S)
         s = torch.where(ok, pid.long(), 0)
         tie = ok[:, None] & (feat == canvas[s])
         n = torch.zeros_like(canvas).index_add_(0, s, tie.float())
+        equal = {k: torch.equal(v, ref) for k, v in routes.items()}
         log("train_kernels", f"pillar_scatter_max_bwd {label}: "
-            f"{feat.shape[0]} points x {feat.shape[1]}, {S} rows, tied "
+            f"{feat.shape[0]} points x {feat.shape[1]}, {S} rows, most "
+            f"points a row {int(torch.bincount(s[ok]).max().item())}, tied "
             f"cells {(n > 1).sum().item()} (most {int(n.max().item())} "
-            f"points), dropped ids {(~ok).sum().item()}, equal "
-            f"{torch.equal(out, ref)} (must be)")
-        if not torch.equal(out, ref):
+            f"points), dropped ids {(~ok).sum().item()}, equal {equal} "
+            "(must be)")
+        if not all(equal.values()):
             raise AssertionError(f"pillar_scatter_max_bwd ({label}) "
                                  "disagrees with plain")
-    g, feat, pid, canvas = step_args
+    g, feat, pid, canvas, sort = step_args
     S, C = canvas.shape
     ok = (pid >= 0) & (pid < S)
     idx = pid.long()[ok][:, None].expand(-1, C)
@@ -1850,9 +1952,17 @@ def _canvas_bwd_case(torch, ctx, dev):
     def lib():
         return torch.autograd.grad(lib_canvas, fvalid, g, retain_graph=True)
 
+    def alone():
+        return pillar_scatter_max_bwd(g, feat, pid, canvas)
+
     r = _timed(torch, ctx, "pillar_scatter_max_bwd",
                lambda: pillar_scatter_max_bwd(*step_args),
-               lambda: pillar_scatter_max_bwd_plain(*step_args), lib)
+               lambda: pillar_scatter_max_bwd_plain(*step_args[:4]), lib)
+    r["standalone_ms"] = cuda_ms(torch, alone, iters=20)
+    r["standalone_device_ms"] = device_ms(torch, alone)
+    log("train_kernels", f"pillar_scatter_max_bwd standalone (sorting "
+        f"itself): {r['standalone_ms']:.4f} ms host-paced, "
+        f"{r['standalone_device_ms']:.4f} ms device-only")
     rows = torch.unique(pid[ok]).numel()
     nbytes = 2 * feat.numel() * 4 + pid.numel() * 4 + 2 * rows * C * 4
     r["bound_ms"], r["bound_by"] = bound_ms(nbytes, feat.numel())
@@ -1890,7 +2000,8 @@ def phase_train(ctx):
 
     # step 1 on the card against the port on the CPU: B = 2, the same
     # weights, batch and noise; the card twice, to show its own spread
-    # (atomics add in another order in every run)
+    # (scatter_add's atomics and some cuDNN kernels add in another order
+    # in every run)
     cfg = v2_config()
     cpu_models = distill_models(cfg, torch.Generator().manual_seed(0))
     cpu_batch = make_batch(cfg, 2, MAX_POINTS_TRAIN, seed=0, device="cpu")

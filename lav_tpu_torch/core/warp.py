@@ -31,7 +31,10 @@ does: `CropShared` is the autograd Function around `crop_shared`, and its
 backward is kernel `crop_shared_bwd` (csrc/crop_shared_bwd.cu) on the
 card, `grid_sample_shared_bwd` on the CPU: each output pixel's gradient,
 times each tap's f32 hinge weight, is added into the source's gradient at
-the tap; the grid gets none.
+the tap; the grid gets none.  The kernel computes it as a gather (each
+source cell sums the output pixels that reach it, found through an affine
+fit of each crop's grid, `crop_bwd_map` and `crop_bwd_window`), with no
+atomics and in a fixed order.
 """
 
 from __future__ import annotations
@@ -200,12 +203,76 @@ def grid_sample_shared_bwd(g, grid, H: int, W: int):
     return d_src.reshape(B, H, W, C)
 
 
+def crop_bwd_map(grid, H: int, W: int):
+    """Plain version of kernel `crop_shared_bwd`'s first pass: per crop
+    of grid (B, K, Ho, Wo, 2) -> (B * K, 8) f32 (inv00, inv01, inv10,
+    inv11, ox, oy, hu, hv).  The crop's positions (ix, iy), in source
+    pixels as the forward computes them, are fitted by an affine function
+    of the output pixel (u, v) through three corners of the grid (in
+    float64); `dev` is the largest distance of any position from the fit.
+    The fit's inverse maps a source cell (x, y) to the centre of its
+    candidate window, hu and hv are the window's half sides: the inverse
+    image of the square of half side 1 + dev (+ 1e-3) around the cell,
+    widened by one output pixel.  A degenerate fit (|det| <= 1e-9 of its
+    scale, a 1-pixel side, a non-finite position) gives hu = hv = inf
+    (every output pixel a candidate) and zeros elsewhere."""
+    B, K, Ho, Wo, _ = grid.shape
+    ix = (grid[..., 0] + 1.0) * 0.5 * (W - 1)
+    iy = (grid[..., 1] + 1.0) * 0.5 * (H - 1)
+    pos = torch.stack([ix, iy], -1).reshape(B * K, Ho, Wo, 2).double()
+    p00, p10, p01 = pos[:, 0, 0], pos[:, 0, -1], pos[:, -1, 0]
+    du = (p10 - p00) / (Wo - 1) if Wo > 1 else torch.zeros_like(p00)
+    dv = (p01 - p00) / (Ho - 1) if Ho > 1 else torch.zeros_like(p00)
+    v, u = torch.meshgrid(
+        torch.arange(Ho, dtype=torch.float64, device=grid.device),
+        torch.arange(Wo, dtype=torch.float64, device=grid.device),
+        indexing="ij")
+    fit = (p00[:, None, None] + du[:, None, None] * u[..., None]
+           + dv[:, None, None] * v[..., None])
+    miss = (pos - fit).abs().amax(-1).reshape(B * K, -1)
+    dev = torch.where(torch.isnan(miss).any(-1), torch.inf, miss.amax(-1))
+    a, c = du[:, 0], du[:, 1]
+    b, d = dv[:, 0], dv[:, 1]
+    det = a * d - b * c
+    scale = (a.abs() + b.abs()) * (c.abs() + d.abs())
+    ok = (torch.isfinite(dev) & torch.isfinite(det) & torch.isfinite(scale)
+          & (det.abs() > 1e-9 * scale) & torch.isfinite(p00).all(-1))
+    inv = torch.stack([d, -b, -c, a], -1) / det[:, None]
+    r = 1.0 + dev + 1e-3
+    hu = r * (inv[:, 0].abs() + inv[:, 1].abs()) + 1.0
+    hv = r * (inv[:, 2].abs() + inv[:, 3].abs()) + 1.0
+    out = torch.cat([inv, p00, hu[:, None], hv[:, None]], -1).float()
+    bad = torch.tensor([0.0] * 6 + [torch.inf] * 2, device=out.device)
+    return torch.where(ok[:, None], out, bad)
+
+
+def crop_bwd_window(cmap, x, y, Ho: int, Wo: int):
+    """The candidate window of source cell (x, y) (tensors of one shape,
+    broadcast against cmap's crops (n, 8)), as kernel `crop_shared_bwd`'s
+    gather computes it in f32 -> (u0, u1, v0, v1) int64, inclusive and
+    clamped to the crop; empty where u0 > u1 or v0 > v1."""
+    i00, i01, i10, i11, ox, oy, hu, hv = cmap.unbind(-1)
+    dx, dy = x.float() - ox, y.float() - oy
+    uc, vc = i00 * dx + i01 * dy, i10 * dx + i11 * dy
+    u0 = torch.clamp(torch.ceil(uc - hu), min=0.0)
+    u1 = torch.clamp(torch.floor(uc + hu), max=float(Wo - 1))
+    v0 = torch.clamp(torch.ceil(vc - hv), min=0.0)
+    v1 = torch.clamp(torch.floor(vc + hv), max=float(Ho - 1))
+    big = float(max(Ho, Wo) + 1)   # an infinite side, held in int64
+    return tuple(torch.clamp(t, -big, big).long() for t in (u0, u1, v0, v1))
+
+
 def crop_shared_bwd(g, grid, H: int, W: int):
     """Kernel `crop_shared_bwd` (contract of `grid_sample_shared_bwd`):
-    the f32 source gradient of `crop_shared`.  The kernel adds a tap with
-    atomics, in an order that changes from run to run, and skips a tap of
-    weight 0 (it adds g * 0 = 0 for a finite g).  CPU tensors take the
-    plain version."""
+    the f32 source gradient of `crop_shared`, as a gather: each cell of
+    d_src sums, in a fixed order, the output pixels whose taps reach it,
+    and is written once (so d_src is not zeroed first, and two calls give
+    the same bits).  It finds those pixels through an affine fit of each
+    crop's grid (`crop_bwd_map`), as `affine_grid` makes every crop's
+    grid; a grid that is not affine is still right (the fit's largest miss
+    widens the window, up to every output pixel), only slower.  A tap of
+    weight 0 is skipped (it adds g * 0 = 0 for a finite g).  CPU tensors
+    take the plain version."""
     if g.device.type == "cpu":
         return grid_sample_shared_bwd(g, grid, H, W)
     if g.device.type != "cuda" or grid.device != g.device:
@@ -220,11 +287,12 @@ def crop_shared_bwd(g, grid, H: int, W: int):
     if not (g.is_contiguous() and grid.is_contiguous()):
         raise ValueError("crop_shared_bwd: g and grid must be contiguous")
     B, K, Ho, Wo, C = g.shape
-    d_src = g.new_zeros((B, H, W, C))
+    d_src = g.new_empty((B, H, W, C))
+    cmap = g.new_empty((max(B * K, 1), 8))
     vec = 4 if C % 4 == 0 and g.data_ptr() % 16 == 0 else 1
     native.launch(native.ENTRIES["crop_shared_bwd_f32"], g.get_device(),
-                  g.data_ptr(), grid.data_ptr(), d_src.data_ptr(), B, H, W,
-                  C, K, Ho, Wo, vec)
+                  g.data_ptr(), grid.data_ptr(), d_src.data_ptr(),
+                  cmap.data_ptr(), B, H, W, C, K, Ho, Wo, vec)
     return d_src
 
 

@@ -67,7 +67,9 @@
 //      warps in flight gained 0-5% (PERF.md).
 // The counts, offsets, ranks, indices and partials live in one scratch
 // buffer from the caller (PyTorch's caching allocator; no cudaMalloc here),
-// laid out by `Layout`; `scratch_bytes` must cover it.  cudaMemsetAsync
+// laid out by `Layout`; `scratch_bytes` must cover it.  Training keeps the
+// scratch of pillar_scatter_max_f32 for its backward, which reads the
+// sort (pillar_scatter_max_bwd_f32 below).  cudaMemsetAsync
 // zeroes the counts, 6.6 MB at the production shapes, where the canvas
 // fill was 210 MB.  About 50 MB of scratch traffic in all, beside 333 MB
 // of payload and canvas.
@@ -78,6 +80,7 @@
 
 #include <climits>
 #include <cuda_runtime.h>
+#include <initializer_list>
 #include <stdint.h>
 
 namespace {
@@ -107,7 +110,9 @@ struct Layout {
     tiles = (int)((rows + 1 + kTile - 1) / kTile);  // rows + the end
     max_hot = (int)(n / (kHot + 1) + 1);
     max_chunks = (int)(n / kGroupPoints) + max_hot;  // chunks >= 32 points
-    meta = take(16);  // hot rows (low 32 bits), their chunks (high 32)
+    // hot rows (low 32 bits) and their chunks (high 32); then an int, the
+    // points a chunk (the backward reads the forward's chunks)
+    meta = take(16);
     cnt = take(4ull * tiles * kTile);
     done = take(4ull * max_hot);  // chunks finished per hot row
     zeroed = at;
@@ -298,6 +303,7 @@ __global__ void __launch_bounds__(kThreads)
           v[4 * i + 3] = t.w;
   }
   const int r0 = blockIdx.x * kTile + threadIdx.x * 16;
+  if (r0 == 0) reinterpret_cast<int*>(meta + 1)[0] = chunk;
   int sum = 0;
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
@@ -471,6 +477,45 @@ __global__ void __launch_bounds__(kThreads, 8) rows_kernel(RowsArgs a) {
   }
 }
 
+// 4-byte words a piece: 4, 2 or 1, as the row's bytes and every pointer
+// are aligned
+int piece_words(long long row_bytes, std::initializer_list<const void*> ptrs) {
+  uintptr_t align = (uintptr_t)row_bytes;
+  for (const void* p : ptrs) align |= reinterpret_cast<uintptr_t>(p);
+  return align % 16 == 0 ? 4 : align % 8 == 0 ? 2 : 1;
+}
+
+// x threads a row (a piece each), y rows a block
+dim3 rows_block(int pieces) {
+  const int x = pieces < kThreads ? pieces : kThreads;
+  return dim3(x, kThreads / x);
+}
+
+// passes 1-3 into the scratch laid out by L: the rows' offsets, the points
+// placed by row, the hot rows in chunks of `chunk` points
+int sort_points(const int32_t* ids, int n, int rows, const Layout& L,
+                uint8_t* s, int chunk, cudaStream_t st) {
+  int* cnt = reinterpret_cast<int*>(s + L.cnt);
+  int* tile_sum = reinterpret_cast<int*>(s + L.tile_sum);
+  int* rank = reinterpret_cast<int*>(s + L.rank);
+  const int err = (int)cudaMemsetAsync(s, 0, L.zeroed, st);
+  if (err) return err;
+  const int point_blocks = (n + kThreads - 1) / kThreads;
+  if (n > 0)
+    histogram_kernel<<<point_blocks, kThreads, 0, st>>>(ids, cnt, rank, n,
+                                                         rows);
+  scan_tiles_kernel<<<L.tiles, kThreads, 0, st>>>(
+      cnt, tile_sum, reinterpret_cast<unsigned long long*>(s + L.meta),
+      reinterpret_cast<int*>(s + L.hot_rows),
+      reinterpret_cast<int*>(s + L.hot_start), chunk);
+  scan_sums_kernel<<<1, 1024, 0, st>>>(tile_sum, L.tiles);
+  if (n > 0)
+    place_kernel<<<point_blocks, kThreads, 0, st>>>(
+        ids, rank, Offsets{cnt, tile_sum},
+        reinterpret_cast<int*>(s + L.idx), n, rows);
+  return 0;
+}
+
 template <typename T, bool kNegInit, int W>
 void launch_rows(const RowsArgs& a, dim3 block, cudaStream_t st) {
   const long long blocks = a.hot_blocks + ((long long)a.rows + block.y - 1) /
@@ -496,34 +541,19 @@ int canvas_max(const void* feat, const void* pid, void* out,
   const int n = (int)n_points, rows = (int)segments;
   int* cnt = reinterpret_cast<int*>(s + L.cnt);
   int* tile_sum = reinterpret_cast<int*>(s + L.tile_sum);
-  int* rank = reinterpret_cast<int*>(s + L.rank);
   int* idx = reinterpret_cast<int*>(s + L.idx);
   int* hot_rows = reinterpret_cast<int*>(s + L.hot_rows);
   int* hot_start = reinterpret_cast<int*>(s + L.hot_start);
   auto* meta = reinterpret_cast<unsigned long long*>(s + L.meta);
-  const int32_t* ids = static_cast<const int32_t*>(pid);
-  int err = (int)cudaMemsetAsync(s, 0, L.zeroed, st);
-  if (err) return err;
-  const int point_blocks = (n + kThreads - 1) / kThreads;
-  if (n > 0)
-    histogram_kernel<<<point_blocks, kThreads, 0, st>>>(ids, cnt, rank, n,
-                                                         rows);
   // the rows kernel's block: x threads a row (a piece each), y rows
-  const uintptr_t align = reinterpret_cast<uintptr_t>(feat) |
-                          reinterpret_cast<uintptr_t>(out) |
-                          (uintptr_t)row_bytes;
-  const int W = align % 16 == 0 ? 4 : align % 8 == 0 ? 2 : 1;
+  const int W = piece_words(row_bytes, {feat, out});
   const int pieces = (int)(row_bytes / (4 * W));
-  const dim3 block(pieces < kThreads ? pieces : kThreads,
-                   kThreads / (pieces < kThreads ? pieces : kThreads));
+  const dim3 block = rows_block(pieces);
   const int chunk = (int)block.y * kGroupPoints;
-  scan_tiles_kernel<<<L.tiles, kThreads, 0, st>>>(cnt, tile_sum, meta,
-                                                  hot_rows, hot_start, chunk);
-  scan_sums_kernel<<<1, 1024, 0, st>>>(tile_sum, L.tiles);
+  const int err = sort_points(static_cast<const int32_t*>(pid), n, rows, L, s,
+                              chunk, st);
+  if (err) return err;
   const Offsets off{cnt, tile_sum};
-  if (n > 0)
-    place_kernel<<<point_blocks, kThreads, 0, st>>>(ids, rank, off, idx, n,
-                                                    rows);
   RowsArgs a{static_cast<const uint8_t*>(feat),
              static_cast<uint8_t*>(out),
              s + L.partials,
@@ -603,127 +633,325 @@ extern "C" int pillar_scatter_max_bf16(const void* feat, const void* pid,
 // with the finalized canvas gives 0 there, as JAX's where does.  Dropped
 // ids give 0.  A NaN in the forward is not a case training has to match:
 // a NaN payload equals nothing and gets 0.  Up to the division, the
-// result is exact (no sum is taken).
+// result is exact (no sum is taken), whatever order the points are met in.
 //
 // Bound: bytes.  feat, the gathered canvas and g rows and d_feat, about
 // 4 x 16.8 MB at the distillation step's shapes (4 x 16384 points, 64
-// channels), 0.02 ms at 3.35 TB/s.  Design, simple first, two passes over
-// the points, one thread per (point, 4-channel vector): the first counts
-// the ties of each (row, channel) with int32 atomics into `counts`
-// (S x C, zeroed here with cudaMemsetAsync: 105 MB at those shapes, more
-// than the rest), the second writes d_feat.  Reusing the forward's
-// counting sort (rows pass) would need neither the counts nor their
-// zeroing; that is the redesign to try if this is slow.
+// channels), 0.02 ms at 3.35 TB/s.
+//
+// Design: the ties are counted on the forward's counting sort, in
+// registers; no S x C array, no memset, no atomic.  `scratch` holds the
+// sort as pillar_scatter_max_f32 left it (`sorted` != 0: the caller keeps
+// the forward's scratch for its backward), or is sorted here first by the
+// forward's passes 1-3 (`sorted` == 0; they zero the row counts, S ints).
+// The sort is only read: the chunks' tie counts go to the partials, which
+// the forward no longer needs, so the same scratch serves any number of
+// backward calls.
+//   1. rows (blocks past the hot ones): a group of threads per point k,
+//      a thread a 16-byte piece of the row as in the forward.  As a point,
+//      k writes its own zeros if its id is dropped; as a position of the
+//      sorted list, k walks its row if it is the row's first position and
+//      the row has at most kHot points: it reads the canvas and g piece
+//      once, counts the ties over the row's points, then writes each
+//      point's d_feat piece, one point's loads at a time.  Every element
+//      of d_feat is written once.  The first blocks walk the hot rows'
+//      chunks (the forward's, of `chunk` points, stored in the sort's
+//      meta), kHotInFlight points' loads at a time, and store each chunk's
+//      tie counts, summed over the block, to the partials (C ints a
+//      chunk).  The hot path's registers would be the rows' too: the
+//      kernel is held to 32 (8 blocks an SM), which kept the step's rows
+//      at 0.0301 ms with four loads in flight in the hot chunks (0.0354
+//      without the cap) and took a 5,000-point row from 0.0456 ms (two in
+//      flight) to 0.0403 (PERF.md, `turns.py train --variants`).
+//   2. hot (the first blocks again): a chunk sums the counts of its row's
+//      chunks and writes its points' d_feat.
 
 namespace {
 
-template <typename T>
-__global__ void max_bwd_count(const T* __restrict__ feat,
-                              const int32_t* __restrict__ pid,
-                              const T* __restrict__ canvas,
-                              int* __restrict__ counts, long long total,
-                              int nvec, int C, long long segments) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < total; i += (long long)gridDim.x * blockDim.x) {
-    const long long p = i / nvec;
-    const int v = (int)(i - p * nvec);
-    const long long s = pid[p];
-    if (s < 0 || s >= segments) continue;
-    const T f = feat[i], m = canvas[s * nvec + v];
-    int* cnt = counts + s * C + (long long)v * (sizeof(T) / 4);
-    if constexpr (sizeof(T) == 16) {
-      if (f.x == m.x) atomicAdd(cnt, 1);
-      if (f.y == m.y) atomicAdd(cnt + 1, 1);
-      if (f.z == m.z) atomicAdd(cnt + 2, 1);
-      if (f.w == m.w) atomicAdd(cnt + 3, 1);
-    } else {
-      if (f == m) atomicAdd(cnt, 1);
+// points' loads at once in a hot chunk's walks (a row's walks take one:
+// its points are few)
+constexpr int kHotInFlight = 4;
+
+struct BwdArgs {
+  const float* g;
+  const float* feat;
+  const int32_t* pid;
+  const float* canvas;
+  float* out;
+  int* chunk_counts;  // C ints a hot chunk (the scratch's partials)
+  Offsets off;
+  const int* idx;
+  const unsigned long long* meta;
+  const int* hot_rows;
+  const int* hot_start;
+  int n, rows, C, pieces, hot_blocks;
+};
+
+template <int W>
+struct Vf {
+  float v[W];
+};
+
+// reused (feat, the second walk) or read once
+template <int W>
+__device__ __forceinline__ Vf<W> ldf(const float* p) {
+  Vf<W> r;
+  if constexpr (W == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    r.v[0] = t.x, r.v[1] = t.y, r.v[2] = t.z, r.v[3] = t.w;
+  } else if constexpr (W == 2) {
+    const float2 t = __ldg(reinterpret_cast<const float2*>(p));
+    r.v[0] = t.x, r.v[1] = t.y;
+  } else {
+    r.v[0] = __ldg(p);
+  }
+  return r;
+}
+
+template <int W>
+__device__ __forceinline__ void stf(float* p, const Vf<W>& r) {
+  if constexpr (W == 4)
+    __stcs(reinterpret_cast<float4*>(p),
+           make_float4(r.v[0], r.v[1], r.v[2], r.v[3]));
+  else if constexpr (W == 2)
+    __stcs(reinterpret_cast<float2*>(p), make_float2(r.v[0], r.v[1]));
+  else
+    __stcs(p, r.v[0]);
+}
+
+// the hot row of chunk c: the last h with hot_start[h] <= c
+__device__ __forceinline__ int hot_row_of(const BwdArgs& a, int n_hot, int c) {
+  int lo = 0, hi = n_hot - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (__ldg(a.hot_start + mid) <= c) lo = mid;
+    else hi = mid - 1;
+  }
+  return lo;
+}
+
+// d_feat of piece j of the points idx[k], idx[k + step], ... below end,
+// whose row's max piece is m, gradient piece gv, tie counts cnt; F points'
+// loads at a time
+template <int W, int F>
+__device__ __forceinline__ void write_shares(const BwdArgs& a, int k, int end,
+                                             int step, int j, const Vf<W>& m,
+                                             const Vf<W>& gv, const int* cnt) {
+  float share[W];
+#pragma unroll
+  for (int l = 0; l < W; ++l)
+    share[l] = cnt[l] ? __fmul_rn(gv.v[l], __frcp_rn((float)cnt[l])) : 0.0f;
+  for (; k < end; k += F * step) {
+    long long p[F];
+    Vf<W> f[F];
+#pragma unroll
+    for (int i = 0; i < F; ++i)
+      p[i] = k + i * step < end ? __ldg(a.idx + k + i * step) : -1;
+#pragma unroll
+    for (int i = 0; i < F; ++i)
+      if (p[i] >= 0) f[i] = ldf<W>(a.feat + p[i] * a.C + j * W);
+#pragma unroll
+    for (int i = 0; i < F; ++i) {
+      if (p[i] < 0) continue;
+      Vf<W> r;
+#pragma unroll
+      for (int l = 0; l < W; ++l)
+        r.v[l] = f[i].v[l] == m.v[l] ? share[l] : 0.0f;
+      stf<W>(a.out + p[i] * a.C + j * W, r);
     }
   }
 }
 
-__device__ __forceinline__ float share(float f, float m, float g, int n) {
-  return f == m ? __fmul_rn(g, __frcp_rn((float)n)) : 0.0f;
+// the ties of piece j among the points idx[k], idx[k + step], ... below
+// end, added to cnt; F points' loads at a time
+template <int W, int F>
+__device__ __forceinline__ void count_ties(const BwdArgs& a, int k, int end,
+                                           int step, int j, const Vf<W>& m,
+                                           int* cnt) {
+  for (; k < end; k += F * step) {
+    long long p[F];
+    Vf<W> f[F];
+#pragma unroll
+    for (int i = 0; i < F; ++i)
+      p[i] = k + i * step < end ? __ldg(a.idx + k + i * step) : -1;
+#pragma unroll
+    for (int i = 0; i < F; ++i)
+      if (p[i] >= 0) f[i] = ldf<W>(a.feat + p[i] * a.C + j * W);
+#pragma unroll
+    for (int i = 0; i < F; ++i)
+      if (p[i] >= 0)
+#pragma unroll
+        for (int l = 0; l < W; ++l) cnt[l] += f[i].v[l] == m.v[l];
+  }
 }
 
-template <typename T>
-__global__ void max_bwd_write(const T* __restrict__ g,
-                              const T* __restrict__ feat,
-                              const int32_t* __restrict__ pid,
-                              const T* __restrict__ canvas,
-                              const int* __restrict__ counts,
-                              T* __restrict__ out, long long total, int nvec,
-                              int C, long long segments) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < total; i += (long long)gridDim.x * blockDim.x) {
-    const long long p = i / nvec;
-    const int v = (int)(i - p * nvec);
-    const long long s = pid[p];
-    T r;
-    if (s < 0 || s >= segments) {
-      if constexpr (sizeof(T) == 16)
-        r = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      else
-        r = 0.0f;
-    } else {
-      const long long cell = s * nvec + v;
-      const T f = feat[i], m = canvas[cell], gv = g[cell];
-      const int* cnt = counts + s * C + (long long)v * (sizeof(T) / 4);
-      if constexpr (sizeof(T) == 16) {
-        const int4 n = *reinterpret_cast<const int4*>(cnt);
-        r = make_float4(share(f.x, m.x, gv.x, n.x), share(f.y, m.y, gv.y, n.y),
-                        share(f.z, m.z, gv.z, n.z), share(f.w, m.w, gv.w, n.w));
-      } else {
-        r = share(f, m, gv, *cnt);
+// 1. blocks [0, hot_blocks): the hot chunks' tie counts; the others a
+// point (and a sorted position) per threadIdx.y
+template <int W>
+__global__ void __launch_bounds__(kThreads, 8) max_bwd_rows(BwdArgs a) {
+  if ((int)blockIdx.x >= a.hot_blocks) {
+    const int k = ((int)blockIdx.x - a.hot_blocks) * blockDim.y + threadIdx.y;
+    if (k >= a.n) return;
+    const int sp = __ldg(a.pid + k);
+    if (sp < 0 || sp >= a.rows) {  // a dropped point: zeros
+      Vf<W> z;
+#pragma unroll
+      for (int l = 0; l < W; ++l) z.v[l] = 0.0f;
+      for (int j = threadIdx.x; j < a.pieces; j += blockDim.x)
+        stf<W>(a.out + (long long)k * a.C + j * W, z);
+    }
+    if (a.rows == 0 || k >= a.off(a.rows)) return;
+    const int s = __ldg(a.pid + __ldg(a.idx + k));
+    const int start = a.off(s);
+    if (start != k) return;  // the row's first position walks it
+    const int end = a.off(s + 1);
+    if (end - start > kHot) return;  // a hot row: the hot blocks walk it
+    for (int j = threadIdx.x; j < a.pieces; j += blockDim.x) {
+      const Vf<W> m = ldf<W>(a.canvas + (long long)s * a.C + j * W);
+      const Vf<W> gv = ldf<W>(a.g + (long long)s * a.C + j * W);
+      int cnt[W] = {};
+      count_ties<W, 1>(a, start, end, 1, j, m, cnt);
+      write_shares<W, 1>(a, start, end, 1, j, m, gv, cnt);
+    }
+    return;
+  }
+  __shared__ int red[kThreads * W];
+  const unsigned long long mt = *a.meta;
+  const int n_hot = (int)(mt & 0xffffffffu), chunks = (int)(mt >> 32);
+  const int chunk = reinterpret_cast<const int*>(a.meta + 1)[0];
+  const int t = threadIdx.y * blockDim.x + threadIdx.x;
+  for (int c = blockIdx.x; c < chunks; c += a.hot_blocks) {
+    const int h = hot_row_of(a, n_hot, c);
+    const int s = __ldg(a.hot_rows + h);
+    const int start = a.off(s), end = a.off(s + 1);
+    const int k0 = start + (c - __ldg(a.hot_start + h)) * chunk;
+    const int k1 = min(end, k0 + chunk);
+    for (int j0 = 0; j0 < a.pieces; j0 += blockDim.x) {
+      const int j = j0 + threadIdx.x;
+      int cnt[W] = {};
+      if (j < a.pieces)
+        count_ties<W, kHotInFlight>(
+            a, k0 + (int)threadIdx.y, k1, blockDim.y, j,
+            ldf<W>(a.canvas + (long long)s * a.C + j * W), cnt);
+#pragma unroll
+      for (int l = 0; l < W; ++l) red[t * W + l] = cnt[l];
+      __syncthreads();
+      if (threadIdx.y == 0 && j < a.pieces) {
+        for (int y = 1; y < (int)blockDim.y; ++y)
+#pragma unroll
+          for (int l = 0; l < W; ++l)
+            cnt[l] += red[(y * blockDim.x + threadIdx.x) * W + l];
+#pragma unroll
+        for (int l = 0; l < W; ++l)
+          __stcg(a.chunk_counts + (long long)c * a.C + j * W + l, cnt[l]);
       }
+      __syncthreads();
     }
-    out[i] = r;
   }
 }
 
-int bwd_blocks(long long n) {
-  long long b = (n + 255) / 256;
-  const long long cap = 132LL * 64;  // enough resident blocks for 132 SMs
-  if (b > cap) b = cap;
-  return (int)(b < 1 ? 1 : b);
+// 2. the hot chunks' d_feat, from their rows' summed chunk counts
+template <int W>
+__global__ void __launch_bounds__(kThreads) max_bwd_hot(BwdArgs a) {
+  __shared__ int tot[kThreads * W];
+  const unsigned long long mt = *a.meta;
+  const int n_hot = (int)(mt & 0xffffffffu), chunks = (int)(mt >> 32);
+  const int chunk = reinterpret_cast<const int*>(a.meta + 1)[0];
+  for (int c = blockIdx.x; c < chunks; c += gridDim.x) {
+    const int h = hot_row_of(a, n_hot, c);
+    const int s = __ldg(a.hot_rows + h), first = __ldg(a.hot_start + h);
+    const int start = a.off(s), end = a.off(s + 1);
+    const int n_chunks = (end - start + chunk - 1) / chunk;
+    const int k0 = start + (c - first) * chunk;
+    const int k1 = min(end, k0 + chunk);
+    for (int j0 = 0; j0 < a.pieces; j0 += blockDim.x) {
+      const int j = j0 + threadIdx.x;
+      if (threadIdx.y == 0 && j < a.pieces) {
+        int cnt[W] = {};
+        for (int q = first; q < first + n_chunks; ++q)
+#pragma unroll
+          for (int l = 0; l < W; ++l)
+            cnt[l] += __ldcg(a.chunk_counts + (long long)q * a.C + j * W + l);
+#pragma unroll
+        for (int l = 0; l < W; ++l) tot[threadIdx.x * W + l] = cnt[l];
+      }
+      __syncthreads();
+      if (j < a.pieces) {
+        int cnt[W];
+#pragma unroll
+        for (int l = 0; l < W; ++l) cnt[l] = tot[threadIdx.x * W + l];
+        write_shares<W, kHotInFlight>(
+            a, k0 + (int)threadIdx.y, k1, blockDim.y, j,
+            ldf<W>(a.canvas + (long long)s * a.C + j * W),
+            ldf<W>(a.g + (long long)s * a.C + j * W), cnt);
+      }
+      __syncthreads();
+    }
+  }
 }
 
-template <typename T>
-int max_bwd(const void* g, const void* feat, const void* pid,
-            const void* canvas, void* out, long long n_points, int C,
-            long long segments, void* counts, cudaStream_t st) {
-  const int nvec = C / (int)(sizeof(T) / 4);
-  const long long total = n_points * nvec;
-  cudaError_t err = cudaMemsetAsync(counts, 0, segments * C * sizeof(int),
-                                    st);
-  if (err != cudaSuccess) return (int)err;
-  max_bwd_count<T><<<bwd_blocks(total), 256, 0, st>>>(
-      static_cast<const T*>(feat), static_cast<const int32_t*>(pid),
-      static_cast<const T*>(canvas), static_cast<int*>(counts), total, nvec,
-      C, segments);
-  max_bwd_write<T><<<bwd_blocks(total), 256, 0, st>>>(
-      static_cast<const T*>(g), static_cast<const T*>(feat),
-      static_cast<const int32_t*>(pid), static_cast<const T*>(canvas),
-      static_cast<const int*>(counts), static_cast<T*>(out), total, nvec, C,
-      segments);
-  return (int)cudaGetLastError();
+template <int W>
+void launch_bwd(const BwdArgs& a, int blocks_hot, cudaStream_t st) {
+  const dim3 block = rows_block(a.pieces);
+  const long long blocks = a.hot_blocks + ((long long)a.n + block.y - 1) /
+                                              block.y;
+  max_bwd_rows<W><<<(unsigned)blocks, block, 0, st>>>(a);
+  if (blocks_hot > 0) max_bwd_hot<W><<<blocks_hot, block, 0, st>>>(a);
 }
 
 }  // namespace
 
-// counts: S x C int32 scratch from the caller
+// scratch: the canvas max's (canvas_scratch_bytes of n_points, C, segments,
+// 4 bytes); sorted: it holds pillar_scatter_max_f32's sort of these ids
 extern "C" int pillar_scatter_max_bwd_f32(const void* g, const void* feat,
                                           const void* pid, const void* canvas,
                                           void* out, long long n_points,
                                           int C, long long segments,
-                                          void* counts, void* stream) {
+                                          void* scratch,
+                                          long long scratch_bytes, int sorted,
+                                          void* stream) {
+  if (n_points < 0 || C < 0 || segments < 0 || n_points > INT_MAX ||
+      segments > INT_MAX - kTile || (long long)C * 4 > INT_MAX)
+    return (int)cudaErrorInvalidValue;
   if (n_points == 0 || C == 0) return 0;
+  const long long row_bytes = (long long)C * 4;
+  const Layout L(n_points, segments, row_bytes);
+  if (scratch_bytes < 0 || (size_t)scratch_bytes < L.total)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const uintptr_t any = (uintptr_t)g | (uintptr_t)feat | (uintptr_t)canvas |
-                        (uintptr_t)out | (uintptr_t)counts;
-  if (C % 4 == 0 && any % 16 == 0)
-    return max_bwd<float4>(g, feat, pid, canvas, out, n_points, C, segments,
-                           counts, st);
-  return max_bwd<float>(g, feat, pid, canvas, out, n_points, C, segments,
-                        counts, st);
+  uint8_t* s = static_cast<uint8_t*>(scratch);
+  const int n = (int)n_points, rows = (int)segments;
+  const int W = piece_words(row_bytes, {g, feat, canvas, out});
+  const int pieces = (int)(row_bytes / (4 * W));
+  if (rows > 0 && !sorted) {
+    const int err = sort_points(static_cast<const int32_t*>(pid), n, rows, L,
+                                s, (int)rows_block(pieces).y * kGroupPoints,
+                                st);
+    if (err) return err;
+  }
+  // no rows: every point is dropped, and the scratch holds no sort
+  const int hot = rows > 0 ? (L.max_chunks < kHotBlocks ? L.max_chunks
+                                                        : kHotBlocks)
+                           : 0;
+  const BwdArgs a{static_cast<const float*>(g),
+                  static_cast<const float*>(feat),
+                  static_cast<const int32_t*>(pid),
+                  static_cast<const float*>(canvas),
+                  static_cast<float*>(out),
+                  reinterpret_cast<int*>(s + L.partials),
+                  Offsets{reinterpret_cast<const int*>(s + L.cnt),
+                          reinterpret_cast<const int*>(s + L.tile_sum)},
+                  reinterpret_cast<const int*>(s + L.idx),
+                  reinterpret_cast<const unsigned long long*>(s + L.meta),
+                  reinterpret_cast<const int*>(s + L.hot_rows),
+                  reinterpret_cast<const int*>(s + L.hot_start),
+                  n,
+                  rows,
+                  C,
+                  pieces,
+                  hot};
+  if (W == 4) launch_bwd<4>(a, hot, st);
+  else if (W == 2) launch_bwd<2>(a, hot, st);
+  else launch_bwd<1>(a, hot, st);
+  return (int)cudaGetLastError();
 }

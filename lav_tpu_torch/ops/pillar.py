@@ -133,12 +133,15 @@ _K2_ENTRY = {torch.float32: native.ENTRIES["pillar_scatter_max_f32"],
              torch.bfloat16: native.ENTRIES["pillar_scatter_max_bf16"]}
 
 
-def pillar_scatter_max(feat, pid, num_segments: int):
+def pillar_scatter_max(feat, pid, num_segments: int, keep_sort: bool = False):
     """Kernel `pillar_scatter_max` (contract of `pillar_scatter_max_plain`),
-    f32 or bf16 (C even).  CPU tensors take the plain version."""
+    f32 or bf16 (C even).  CPU tensors take the plain version.  With
+    `keep_sort`, -> (canvas, sort): the kernel's scratch, which holds its
+    counting sort of the points by row (`read_canvas_sort`), for
+    `pillar_scatter_max_bwd`; on the CPU `canvas_sort_plain` builds it."""
     return _scatter("pillar_scatter_max", _K2_ENTRY.get(feat.dtype),
                     pillar_scatter_max_plain, feat, pid, num_segments,
-                    canvas=True)
+                    canvas=True, keep_sort=keep_sort)
 
 
 def pillar_scatter_max_bwd_plain(g, feat, pid, canvas):
@@ -156,10 +159,32 @@ def pillar_scatter_max_bwd_plain(g, feat, pid, canvas):
     return torch.where(tie, share, torch.zeros_like(share))
 
 
-def pillar_scatter_max_bwd(g, feat, pid, canvas):
+def pillar_scatter_max_bwd_sorted_plain(g, feat, canvas, offsets, idx):
+    """Plain version of kernel `pillar_scatter_max_bwd` on the forward's
+    sort (`read_canvas_sort`: row r's points are idx[offsets[r]:
+    offsets[r + 1]]): the ties counted row by row over the sorted points;
+    the same function as `pillar_scatter_max_bwd_plain`, exactly."""
+    S, C = canvas.shape
+    rows = torch.repeat_interleave(
+        torch.arange(S, device=canvas.device), offsets.diff())
+    tie = feat[idx] == canvas[rows]
+    n = canvas.new_zeros((S, C)).index_add_(0, rows, tie.to(canvas.dtype))
+    n = n[rows]
+    share = g[rows] * (1.0 / torch.where(tie, n, torch.ones_like(n)))
+    out = feat.new_zeros(feat.shape)
+    out[idx] = torch.where(tie, share, torch.zeros_like(share))
+    return out
+
+
+def pillar_scatter_max_bwd(g, feat, pid, canvas, sort=None):
     """Kernel `pillar_scatter_max_bwd` (contract of
-    `pillar_scatter_max_bwd_plain`), f32.  CPU tensors take the plain
-    version."""
+    `pillar_scatter_max_bwd_plain`), f32.  `sort` is the scratch that
+    `pillar_scatter_max(feat, pid, S, keep_sort=True)` returned beside this
+    canvas: the kernel counts the ties on its per-row point lists (and
+    writes its partials region, which the forward no longer reads).
+    Without it the kernel sorts the points itself first, as the forward
+    does.  CPU tensors take the plain version (on the sort, where one is
+    given)."""
     dev = feat.get_device()
     if not (feat.is_cuda and feat.dtype is torch.float32
             and g.dtype is torch.float32 and canvas.dtype is torch.float32
@@ -169,7 +194,11 @@ def pillar_scatter_max_bwd(g, feat, pid, canvas):
             and all(t.get_device() == dev for t in (g, pid, canvas))
             and all(t.is_contiguous() for t in (g, feat, pid, canvas))):
         if feat.device.type == "cpu":
-            return pillar_scatter_max_bwd_plain(g, feat, pid, canvas)
+            if sort is None:
+                return pillar_scatter_max_bwd_plain(g, feat, pid, canvas)
+            return pillar_scatter_max_bwd_sorted_plain(
+                g, feat, canvas, *read_canvas_sort(
+                    sort, feat.shape[0], feat.shape[1], canvas.shape[0], 4))
         raise ValueError(
             f"pillar_scatter_max_bwd: g {g.dtype} {tuple(g.shape)}, feat "
             f"{feat.dtype} {tuple(feat.shape)}, pid {pid.dtype} "
@@ -178,62 +207,163 @@ def pillar_scatter_max_bwd(g, feat, pid, canvas):
             "CUDA device")
     N, C = feat.shape
     S = canvas.shape[0]
+    nbytes = canvas_scratch_bytes(N, C, S, 4)
+    if sort is None:
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=feat.device)
+    elif (sort.dtype is torch.uint8 and sort.get_device() == dev
+          and sort.numel() >= nbytes and sort.is_contiguous()):
+        scratch = sort
+    else:
+        raise ValueError(f"pillar_scatter_max_bwd: sort {sort.dtype} "
+                         f"{tuple(sort.shape)} on {sort.device}: the "
+                         f"forward's uint8 scratch of {nbytes} bytes")
     out = torch.empty_like(feat)
-    counts = torch.empty((S, C), dtype=torch.int32, device=feat.device)
     native.launch(native.ENTRIES["pillar_scatter_max_bwd_f32"], dev,
                   g.data_ptr(), feat.data_ptr(), pid.data_ptr(),
                   canvas.data_ptr(), out.data_ptr(), N, C, S,
-                  counts.data_ptr())
+                  scratch.data_ptr(), scratch.numel(), int(sort is not None))
     return out
 
 
 class CanvasMax(torch.autograd.Function):
     """`pillar_scatter_max(feat, pid, S)` with its gradient to feat
-    (`pillar_scatter_max_bwd`); pid gets none."""
+    (`pillar_scatter_max_bwd` on the forward's sort, which the Function
+    keeps); pid gets none."""
 
     @staticmethod
     def forward(ctx, feat, pid, num_segments: int):
-        canvas = pillar_scatter_max(feat, pid, num_segments)
-        ctx.save_for_backward(feat, pid, canvas)
+        canvas, sort = pillar_scatter_max(feat, pid, num_segments,
+                                          keep_sort=True)
+        ctx.save_for_backward(feat, pid, canvas, sort)
         return canvas
 
     @staticmethod
     def backward(ctx, g):
-        feat, pid, canvas = ctx.saved_tensors
-        return (pillar_scatter_max_bwd(g.contiguous(), feat, pid, canvas),
-                None, None)
+        feat, pid, canvas, sort = ctx.saved_tensors
+        return (pillar_scatter_max_bwd(g.contiguous(), feat, pid, canvas,
+                                       sort), None, None)
 
 
 # csrc/pillar_scatter_max.cu's kTile, kHot, kGroupPoints and kAlign
 CANVAS_TILE, CANVAS_HOT, CANVAS_GROUP_POINTS, CANVAS_ALIGN = 4096, 64, 32, 256
 
 
-def canvas_scratch_bytes(n: int, C: int, num_segments: int,
-                         elem: int) -> int:
-    """Bytes of the scratch buffer the canvas max takes for n points of C
-    channels of `elem` bytes into num_segments rows: the `Layout` of
-    csrc/pillar_scatter_max.cu, array by array (each aligned to
-    CANVAS_ALIGN): meta, counts, chunks done, tile sums, ranks, indices,
-    hot rows, their first chunks, partial maxima."""
-    def up(b):
-        return -(-b // CANVAS_ALIGN) * CANVAS_ALIGN
+def canvas_layout(n: int, C: int, num_segments: int, elem: int) -> dict:
+    """The scratch buffer of the canvas max for n points of C channels of
+    `elem` bytes into num_segments rows: the `Layout` of
+    csrc/pillar_scatter_max.cu, each array's byte offset (each aligned to
+    CANVAS_ALIGN), and `total` bytes: meta (hot rows, their chunks, the
+    points a chunk), counts (a row's exclusive prefix within its tile of
+    CANVAS_TILE rows, once scanned), chunks done, tile sums (the tiles'
+    exclusive prefix, once scanned), ranks, indices (the points placed by
+    row), hot rows, their first chunks, partial maxima (or, in the
+    backward, a chunk's tie counts).  `zeroed` ends the arrays the sort
+    zeroes.  Also `tiles`, `max_hot`, `max_chunks`."""
+    at = 0
+
+    def take(nbytes):
+        nonlocal at
+        start = at
+        at = -(-(at + nbytes) // CANVAS_ALIGN) * CANVAS_ALIGN
+        return start
 
     tiles = -(-(num_segments + 1) // CANVAS_TILE)
     max_hot = n // (CANVAS_HOT + 1) + 1
     max_chunks = n // CANVAS_GROUP_POINTS + max_hot
-    return (up(16) + up(4 * tiles * CANVAS_TILE) + up(4 * max_hot)
-            + up(4 * tiles) + 2 * up(4 * n) + 2 * up(4 * max_hot)
-            + up(max_chunks * C * elem))
+    L = dict(tiles=tiles, max_hot=max_hot, max_chunks=max_chunks)
+    L["meta"] = take(16)
+    L["cnt"] = take(4 * tiles * CANVAS_TILE)
+    L["done"] = take(4 * max_hot)
+    L["zeroed"] = at
+    L["tile_sum"] = take(4 * tiles)
+    L["rank"] = take(4 * n)
+    L["idx"] = take(4 * n)
+    L["hot_rows"] = take(4 * max_hot)
+    L["hot_start"] = take(4 * max_hot)
+    L["partials"] = take(max_chunks * C * elem)
+    L["total"] = at
+    return L
+
+
+def canvas_scratch_bytes(n: int, C: int, num_segments: int,
+                         elem: int) -> int:
+    """Bytes of the scratch buffer the canvas max takes (`canvas_layout`)."""
+    return canvas_layout(n, C, num_segments, elem)["total"]
+
+
+def canvas_chunk(C: int, elem: int) -> int:
+    """The points of a hot row's chunk when every pointer is 16-byte
+    aligned: a block of 256 threads, a 16-byte piece of the row (8 or 4
+    bytes if the row's bytes are no multiple of 16) a thread, its rows of
+    threads 32 points each (csrc/pillar_scatter_max.cu's `rows_block`)."""
+    row = C * elem
+    word = 16 if row % 16 == 0 else 8 if row % 8 == 0 else 4
+    x = min(row // word, 256)
+    return 256 // x * CANVAS_GROUP_POINTS
+
+
+def _i32(buf, offset: int, count: int):
+    return buf[offset:offset + 4 * count].view(torch.int32)
+
+
+def canvas_sort_plain(pid, n: int, C: int, num_segments: int, elem: int):
+    """Plain version of the canvas max's sort (csrc/pillar_scatter_max.cu
+    passes 1-3): the scratch (uint8, `canvas_layout`) as the kernel leaves
+    it, its points in index order within a row (the kernel's order within
+    a row varies) and its hot rows in row order (the kernel's in any), the
+    chunks of `canvas_chunk` points; partial maxima and chunks done are
+    left 0."""
+    L = canvas_layout(n, C, num_segments, elem)
+    buf = torch.zeros(L["total"], dtype=torch.uint8, device=pid.device)
+    p = pid.long()
+    ok = (p >= 0) & (p < num_segments)
+    tiles = L["tiles"]
+    counts = torch.bincount(p[ok], minlength=tiles * CANVAS_TILE)
+    per_tile = counts.reshape(tiles, CANVAS_TILE)
+    local = per_tile.cumsum(1) - per_tile
+    tile_tot = per_tile.sum(1)
+    order = torch.nonzero(ok).flatten()
+    order = order[torch.argsort(p[order], stable=True)]
+    offsets = (local + (tile_tot.cumsum(0) - tile_tot)[:, None]).flatten()
+    rank = torch.zeros(n, dtype=torch.int64, device=pid.device)
+    rank[order] = torch.arange(order.numel(), device=pid.device) - offsets[
+        p[order]]
+    chunk = canvas_chunk(C, elem)
+    hot = torch.nonzero(counts > CANVAS_HOT).flatten()
+    chunks = -(-counts[hot] // chunk)
+    _i32(buf, L["cnt"], tiles * CANVAS_TILE)[:] = local.flatten()
+    _i32(buf, L["tile_sum"], tiles)[:] = tile_tot.cumsum(0) - tile_tot
+    _i32(buf, L["rank"], n)[:] = rank
+    _i32(buf, L["idx"], order.numel())[:] = order
+    _i32(buf, L["hot_rows"], hot.numel())[:] = hot
+    _i32(buf, L["hot_start"], hot.numel())[:] = chunks.cumsum(0) - chunks
+    _i32(buf, L["meta"], 3)[:] = torch.tensor(
+        [hot.numel(), int(chunks.sum()), chunk], dtype=torch.int32)
+    return buf
+
+
+def read_canvas_sort(sort, n: int, C: int, num_segments: int, elem: int):
+    """The canvas max's sort in its scratch `sort` (`canvas_layout`) ->
+    (offsets (S + 1,), idx (offsets[-1],)), int64: row r's points are
+    idx[offsets[r]:offsets[r + 1]]; a row's offset is its prefix within its
+    tile plus its tile's prefix."""
+    L = canvas_layout(n, C, num_segments, elem)
+    rows = torch.arange(num_segments + 1, device=sort.device)
+    offsets = (_i32(sort, L["cnt"], num_segments + 1).long()
+               + _i32(sort, L["tile_sum"], L["tiles"]).long()[
+                   rows // CANVAS_TILE])
+    return offsets, _i32(sort, L["idx"], n)[:int(offsets[-1])].long()
 
 
 def _scatter(name, entry, plain, feat, pid, num_segments: int,
-             canvas: bool):
+             canvas: bool, keep_sort: bool = False):
     """Launch `entry` (kernel `name`) on (feat, pid); CPU tensors take
     `plain`.  A canvas max writes every row of an uninitialised output and
-    takes a scratch buffer (`canvas_scratch_bytes`); the add sums into a
-    zeroed one.  The checks the scatters share (int32 pid (N,) beside feat
-    (N, C) on its device, both contiguous, bf16 rows in 4-byte channel
-    pairs) are one test on the fast path; `_refuse` says what is wrong."""
+    takes a scratch buffer (`canvas_scratch_bytes`), which it returns
+    beside the canvas with `keep_sort`; the add sums into a zeroed one.
+    The checks the scatters share (int32 pid (N,) beside feat (N, C) on
+    its device, both contiguous, bf16 rows in 4-byte channel pairs) are
+    one test on the fast path; `_refuse` says what is wrong."""
     dev = feat.get_device()
     if not (feat.is_cuda and entry is not None and pid.dtype is torch.int32
             and feat.dim() == 2 and pid.dim() == 1
@@ -242,7 +372,11 @@ def _scatter(name, entry, plain, feat, pid, num_segments: int,
             and (feat.dtype is not torch.bfloat16
                  or (feat.shape[1] % 2 == 0 and feat.data_ptr() % 4 == 0))):
         if feat.device.type == "cpu":
-            return plain(feat, pid, num_segments)
+            out = plain(feat, pid, num_segments)
+            if not keep_sort:
+                return out
+            return out, canvas_sort_plain(pid, *feat.shape, num_segments,
+                                          feat.element_size())
         _refuse(name, entry, feat, pid)
     N, C = feat.shape
     if not canvas:
@@ -257,7 +391,7 @@ def _scatter(name, entry, plain, feat, pid, num_segments: int,
     native.launch(entry, dev, feat.data_ptr(), pid.data_ptr(),
                   out.data_ptr(), N, C, num_segments, scratch.data_ptr(),
                   scratch.numel())
-    return out
+    return (out, scratch) if keep_sort else out
 
 
 def _refuse(name, entry, feat, pid):

@@ -4,6 +4,7 @@
     python3 -m lav_tpu_torch.utils.turns conv --parent DIR
     python3 -m lav_tpu_torch.utils.turns scatter --parent DIR [--diagnose]
         [--variants]
+    python3 -m lav_tpu_torch.utils.turns train --parent DIR [--variants]
 
 Run on a machine with a card, from the root of a checkout; DIR is another
 checkout (for instance the parent commit unpacked with `git archive`).
@@ -40,6 +41,20 @@ and on one pillar of 5,000 points among the phase's others.
 in place of the compare-and-swap loop or atomic; their outputs differ, and
 are not compared.  `--variants` adds builds of this tree's source with one
 of its choices undone (`SCATTER_VARIANTS`); their outputs must equal.
+
+train: the distillation step's two backward kernels, each build launched
+with its own tree's arguments.  `crop_shared_bwd_f32` on the student's
+crops of a step (chip_smoke.py's `_student_crop_grids`, the two calls
+timed as a pair): the parent's into a zeroed d_src (its wrapper zeroed
+it), this tree's with its map scratch; compared within CROP_BWD_RTOL of
+each cell's sum of |g w|, since the parent's atomics add in no fixed
+order.  `pillar_scatter_max_bwd_f32` on the inputs one step hands it
+(chip_smoke.py's `_canvas_bwd_inputs`) and on its hot row of 5,000 points:
+the parent's with its S x C tie counts, this tree's on the forward's sort
+(the step's route) and sorting itself (standalone); compared exactly.
+`--variants` adds builds of this tree's sources with one choice changed
+(`TRAIN_VARIANTS`); a crop variant must equal this tree bit for bit (each
+cell's terms keep their order).
 """
 
 from __future__ import annotations
@@ -48,6 +63,7 @@ import argparse
 import ctypes
 import importlib.util
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -87,7 +103,7 @@ def build(name: str, src: Path, subs=()):
             raise ValueError(f"{name}: {old!r} is not in {src}")
         text = text.replace(old, new)
     OUT.mkdir(parents=True, exist_ok=True)
-    tag = name.replace(" ", "_")
+    tag = re.sub(r"\W", "_", name)   # nvcc passes it on in key=value lists
     cu, so = OUT / f"{tag}.cu", OUT / f"lib{tag}.so"
     cu.write_text(text)
     proc = subprocess.run([native._nvcc(), *native.NVCC_FLAGS, "-o", str(so),
@@ -104,16 +120,17 @@ def entry(lib, symbol, argtypes):
     return fn
 
 
-def in_turns(runs: dict, label: str, compare=None) -> dict:
-    """Check each run's output against the first's (for the names in
-    `compare`), then time the runs in turns; prints and returns {name:
-    [(device-only ms, host-paced ms), ...]}."""
+def in_turns(runs: dict, label: str, compare=None,
+             agree=torch.equal) -> dict:
+    """Check each run's output against the first's with `agree` (for the
+    names in `compare`), then time the runs in turns; prints and returns
+    {name: [(device-only ms, host-paced ms), ...]}."""
     outs = {name: run() for name, run in runs.items()}
     torch.cuda.synchronize()
     first = next(iter(outs))
     for name in compare or outs:
-        same = torch.equal(outs[name], outs[first])
-        print(f"[{label}] {name}: output equal to {first}'s {same}",
+        same = agree(outs[name], outs[first])
+        print(f"[{label}] {name}: output agrees with {first}'s {same}",
               flush=True)
         if not same:
             raise AssertionError(f"{label}: {name} differs from {first}")
@@ -286,6 +303,30 @@ SCATTER_VARIANTS = {
     "hot above 128": [("constexpr int kHot = 64;",
                        "constexpr int kHot = 128;")],
 }
+# this tree's backward kernels with one choice changed: the cells of d_src
+# a gather warp owns (1 x 1), the gather's registers held to 6 blocks an
+# SM (40; not held), the canvas rows kernel's held to 8 blocks an SM (32)
+# and a hot chunk's walks' loads in flight (4)
+_CELLS = "constexpr int kCellsX = 1, kCellsY = 1;"
+_HOT = "constexpr int kHotInFlight = 4;"
+TRAIN_VARIANTS = {
+    "2 x 1 cells a warp": ("crop_shared_bwd", [(
+        _CELLS, "constexpr int kCellsX = 2, kCellsY = 1;")]),
+    "1 x 2 cells a warp": ("crop_shared_bwd", [(
+        _CELLS, "constexpr int kCellsX = 1, kCellsY = 2;")]),
+    "2 x 2 cells a warp": ("crop_shared_bwd", [(
+        _CELLS, "constexpr int kCellsX = 2, kCellsY = 2;")]),
+    "6 blocks an SM": ("crop_shared_bwd", [(
+        "__launch_bounds__(kThreads)\n    crop_gather_kernel",
+        "__launch_bounds__(kThreads, 6)\n    crop_gather_kernel")]),
+    "rows not held to 8 blocks an SM": ("pillar_scatter_max", [(
+        "__launch_bounds__(kThreads, 8) max_bwd_rows(",
+        "__launch_bounds__(kThreads) max_bwd_rows(")]),
+    "hot: one load in flight": ("pillar_scatter_max", [(
+        _HOT, "constexpr int kHotInFlight = 1;")]),
+    "hot: two loads in flight": ("pillar_scatter_max", [(
+        _HOT, "constexpr int kHotInFlight = 2;")]),
+}
 # the parent's source of each canvas-max entry
 _PARENT_SOURCE = {"scatter_max_bf16": "pillar_scatter",
                   "pillar_scatter_max_bf16": "pillar_scatter_max",
@@ -399,17 +440,127 @@ def scatter(parent: Path, diagnose: bool, variants: bool) -> dict:
     return res
 
 
+def train(parent: Path, variants: bool) -> dict:
+    from lav_tpu_torch.core.warp import grid_sample_shared_bwd
+    from lav_tpu_torch.ops.pillar import canvas_scratch_bytes
+
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    psrc = parent / "lav_tpu_torch" / "csrc"
+    dev = torch.device("cuda")
+    res = {}
+
+    # the crop's source gradient, a step's two calls
+    here = {src: native.CSRC_DIR / f"{src}.cu"
+            for src in ("crop_shared_bwd", "pillar_scatter_max")}
+    crop_libs = {"parent": build("parent crop bwd",
+                                 psrc / "crop_shared_bwd.cu"),
+                 "this tree": build("this crop bwd", here["crop_shared_bwd"])}
+    canvas_libs = {"parent": build("parent canvas max",
+                                   psrc / "pillar_scatter_max.cu"),
+                   "this tree": build("this canvas max",
+                                      here["pillar_scatter_max"])}
+    for name, (src, subs) in TRAIN_VARIANTS.items() if variants else ():
+        libs = crop_libs if src == "crop_shared_bwd" else canvas_libs
+        libs[f"this tree, {name}"] = build(f"this {name}", here[src], subs)
+    H = W = 160
+    C = 384
+    grids = cs._student_crop_grids(torch, dev)
+    gen = torch.Generator(device="cpu").manual_seed(8)
+    gs = [torch.randn(tuple(gr.shape[:4]) + (C,), generator=gen).to(dev)
+          for gr in grids]
+    mags = [grid_sample_shared_bwd(g.abs(), gr, H, W)
+            for g, gr in zip(gs, grids)]
+    runs = {}
+    for name, lib in crop_libs.items():
+        zeroed = name == "parent"   # its args: no map; d_src zeroed first
+        fn = entry(lib, "crop_shared_bwd_f32", (P,) * 3 + (I,) * 8 if zeroed
+                   else native.ENTRIES["crop_shared_bwd_f32"].argtypes)
+        outs = [torch.empty((gr.shape[0], H, W, C), device=dev)
+                for gr in grids]
+        maps = [torch.empty((gr.shape[0] * gr.shape[1], 8), device=dev)
+                for gr in grids]
+
+        def run(fn=fn, outs=outs, maps=maps, zeroed=zeroed):
+            for g, gr, out, m in zip(gs, grids, outs, maps):
+                B, K, Ho, Wo, _ = gr.shape
+                if zeroed:
+                    out.zero_()
+                ptrs = (g.data_ptr(), gr.data_ptr(), out.data_ptr()) + (
+                    () if zeroed else (m.data_ptr(),))
+                err = fn(*ptrs, B, H, W, C, K, Ho, Wo, 4,
+                         torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"crop_shared_bwd_f32: cudaError "
+                                       f"{err}")
+            return outs
+        runs[name] = run
+
+    def close(outs, ref):
+        return all(bool(((a - b).abs() <= cs.CROP_BWD_RTOL * m).all())
+                   for a, b, m in zip(outs, ref, mags))
+
+    label = "crop_shared_bwd_f32, a step's two calls"
+    mine = runs["this tree"]()
+    for name, run in runs.items():
+        if name.startswith("this tree, ") and not all(
+                torch.equal(a, b) for a, b in zip(run(), mine)):
+            raise AssertionError(f"{label}: {name} differs from this tree")
+    res[label] = in_turns(runs, label, agree=close)
+    del gs, grids, mags, runs
+    torch.cuda.empty_cache()
+
+    # the canvas max's gradient: the step's inputs, then a hot row
+    step_args = cs._canvas_bwd_inputs(torch, {"device": "cuda"})
+    hot = cs._canvas_bwd_cases(torch, dev)[-1]
+    for label, (g, feat, pid, cmax, sort) in (("the step's", step_args),
+                                              (hot[0], hot[1:])):
+        (N, C), S = feat.shape, cmax.shape[0]
+        runs = {}
+        for lib_name, lib in canvas_libs.items():
+            for route in (("",) if lib_name == "parent" else
+                          (", on the forward's sort", ", standalone")):
+                name = lib_name + route
+                out = torch.empty_like(feat)
+                if lib_name == "parent":   # its S x C tie counts
+                    fn = entry(lib, "pillar_scatter_max_bwd_f32",
+                               (P,) * 5 + (LL, I, LL, P))
+                    buf = torch.empty((S, C), dtype=torch.int32, device=dev)
+                    args = (buf.data_ptr(),)
+                else:
+                    fn = entry(lib, "pillar_scatter_max_bwd_f32",
+                               native.ENTRIES["pillar_scatter_max_bwd_f32"]
+                               .argtypes)
+                    on_sort = route.endswith("sort")
+                    buf = sort if on_sort else torch.empty(
+                        canvas_scratch_bytes(N, C, S, 4), dtype=torch.uint8,
+                        device=dev)
+                    args = (buf.data_ptr(), buf.numel(), int(on_sort))
+
+                def run(fn=fn, out=out, args=args, buf=buf):
+                    err = fn(g.data_ptr(), feat.data_ptr(), pid.data_ptr(),
+                             cmax.data_ptr(), out.data_ptr(), N, C, S, *args,
+                             torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise RuntimeError("pillar_scatter_max_bwd_f32: "
+                                           f"cudaError {err}")
+                    return out
+                runs[name] = run
+        key = f"pillar_scatter_max_bwd_f32, {label}"
+        res[key] = in_turns(runs, key)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("kernel", choices=("crop", "conv", "scatter"))
+    ap.add_argument("kernel", choices=("crop", "conv", "scatter", "train"))
     ap.add_argument("--parent", required=True, type=Path,
                     help="the other checkout's root")
     ap.add_argument("--diagnose", action="store_true",
                     help="crop, scatter: add the parent kernel's "
                     "diagnostic builds")
     ap.add_argument("--variants", action="store_true",
-                    help="scatter: add this tree's kernel with one choice "
-                    "undone in each build")
+                    help="scatter, train: add this tree's kernels with one "
+                    "choice changed in each build")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("turns: no card", file=sys.stderr)
@@ -419,7 +570,8 @@ def main(argv=None) -> int:
                          text=True).stdout.strip(), flush=True)
     res = (crop(args.parent, args.diagnose) if args.kernel == "crop"
            else scatter(args.parent, args.diagnose, args.variants)
-           if args.kernel == "scatter" else conv(args.parent))
+           if args.kernel == "scatter" else train(args.parent, args.variants)
+           if args.kernel == "train" else conv(args.parent))
     print(json.dumps(res))
     return 0
 

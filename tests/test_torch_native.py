@@ -47,9 +47,10 @@ def test_entries_match_the_c_sources():
 
 def test_the_backward_entries_are_declared_as_their_sources_define_them():
     """The distillation step's two backward kernels: crop_shared_bwd_f32
-    (g, grid, d_src, B, H, W, C, K, Ho, Wo, vec) in its own source, and
-    pillar_scatter_max_bwd_f32 (g, feat, pid, canvas, d_feat, n_points, C,
-    segments, counts) beside the canvas max it differentiates."""
+    (g, grid, d_src, map, B, H, W, C, K, Ho, Wo, vec) in its own source,
+    and pillar_scatter_max_bwd_f32 (g, feat, pid, canvas, d_feat, n_points,
+    C, segments, scratch, scratch_bytes, sorted) beside the canvas max it
+    differentiates."""
     sigs = _c_signatures()
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     crop = native.ENTRIES["crop_shared_bwd_f32"]
@@ -57,8 +58,9 @@ def test_the_backward_entries_are_declared_as_their_sources_define_them():
     assert (crop.source, crop.kernel) == ("crop_shared_bwd", "crop_shared_bwd")
     assert (canvas.source, canvas.kernel) == ("pillar_scatter_max",
                                               "pillar_scatter_max_bwd")
-    assert sigs["crop_shared_bwd_f32"] == [P] * 3 + [I] * 8 + [P]
-    assert sigs["pillar_scatter_max_bwd_f32"] == [P] * 5 + [LL, I, LL, P, P]
+    assert sigs["crop_shared_bwd_f32"] == [P] * 4 + [I] * 8 + [P]
+    assert sigs["pillar_scatter_max_bwd_f32"] == [P] * 5 + [LL, I, LL, P, LL,
+                                                            I, P]
 
 
 class _StubLib:
@@ -210,8 +212,16 @@ def test_launch_without_a_card_raises(stub):
 
 
 def _layout_total(n, rows, row_bytes):
+    """csrc/pillar_scatter_max.cu's `Layout` total and constants
+    (`_layout_scope`)."""
+    scope, consts = _layout_scope(n, rows, row_bytes)
+    return scope["total"], consts
+
+
+def _layout_scope(n, rows, row_bytes):
     """csrc/pillar_scatter_max.cu's `Layout` constructor, read from the
-    source and run in Python (integer arithmetic, every operand >= 0)."""
+    source and run in Python (integer arithmetic, every operand >= 0) ->
+    (every field it sets, the source's constants)."""
     src = (native.CSRC_DIR / "pillar_scatter_max.cu").read_text()
     consts = {k: int(v) for k, v in re.findall(
         r"constexpr (?:int|size_t) (k\w+) = (\d+);", src)}
@@ -233,7 +243,7 @@ def _layout_total(n, rows, row_bytes):
         code = re.sub(r"\((?:int|size_t)\)", "", code)
         code = re.sub(r"(\d+)ull", r"\1", code).replace("/", "//")
         exec(code, {}, scope)
-    return scope["total"], consts
+    return scope, consts
 
 
 @pytest.mark.parametrize("n,C,rows,elem", [
