@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases build,crop,scatter,conv_int8,production
     python3 chip_smoke.py --phases build,pillar,crop,conv_int8,gather,variants
     python3 chip_smoke.py --phases build,train_kernels,train
+    python3 chip_smoke.py --phases build,crop,privileged
 
 Phases, each printing its own line and raising on failure:
   build   the card's name and power limit; nvcc builds every kernel
@@ -19,7 +20,8 @@ Phases, each printing its own line and raising on failure:
           forms also on zoom-out crops (2 source pixels an output pixel,
           45 degrees and others) and on 90x90 crops (partial 16x16
           tiles); host-paced and device-only times and host us per call
-          of the int8 forms
+          of the int8 forms; and crop_shared f32 at the BEV trainer's
+          shapes (64 sources of 320x320x9, 5 crops of 192x192 each)
   pillar  kernel pillar_scatter_max against its plain version at the
           agent's shapes (4 x 49152 points, 64 channels, 4 x 102401
           pillars) with masked points at NEG in the in-range dump slots,
@@ -101,6 +103,18 @@ Phases, each printing its own line and raising on failure:
           pillar_scatter_max_bwd and scatter_add each launch, with loss
           and grad_norm finite, and 4 more: the p50 step over steps 2-7
           and samples/s
+  privileged  the stage-1 trainers (lav_tpu.train.privileged) in f32 at
+          full width: step 1 of each at B = 2 on the card against the port
+          on the CPU (the same weights from seed 0, batch, noise and
+          dropout masks) in loss, grad_norm and four gradient leaves; then
+          the BEV planner step (v2_config(), v2 losses, B = 64: crop_shared
+          twice a step, crop_shared_bwd never), the seg step (ERFNet with
+          dropout, 288x256, B = 32) and the brake step (v2, 288x768 wide
+          and 192x480 telephoto, its seg head, B = 8; both launch no
+          kernel of the port), each 3 steps with launch counts and 4
+          more: the p50 step over steps 2-7, samples/s, peak memory and
+          one profiled step's device busy time, launches, host syncs, top
+          kernels and top host ops
   profile (only when asked for) one warm tick of the agent under
           torch.profiler (--config f32, production, variants, both = the
           first two, or all): device time
@@ -127,7 +141,8 @@ import time
 AGENT_KERNELS = ("crop_shared", "pillar_scatter_max", "scatter_add")
 VARIANT_ABSENT = ("crop_shared_q8", "scatter_max", "pillar_scatter_max")
 ALL_PHASES = ("build", "crop", "pillar", "scatter", "conv_int8", "gather",
-              "agent", "production", "variants", "train_kernels", "train")
+              "agent", "production", "variants", "train_kernels", "train",
+              "privileged")
 EXTRA_PHASES = ("profile",)
 NUM_EGO = 4
 MAX_POINTS = 8192
@@ -142,6 +157,17 @@ TRAIN_LEAVES = ("lidar_model.point_pillar.linear_0.w",
                 "lidar_model.backbone.conv2_0.conv.w",
                 "uniplanner.lidar_conv_emb.conv1.w",
                 "uniplanner.cast_grus.w_ih")
+B_BEV = 64                  # bench_train.py's default --batch-size
+B_SEG = 32                  # the stage-1 trainers' batches, cut from the
+B_BRA = 8                   # reference's 256 / 256 / 52 (PERF.md section 4)
+PRIV_LEAVES = {
+    "bev": ("bev_conv_emb.conv1.w", "bev_conv_emb.layer4_1.conv2.w",
+            "plan_gru.w_ih", "cast_grus.w_ih"),
+    "seg": ("erfnet.initial.conv.w", "erfnet.enc_7.conv3x1_2.w",
+            "erfnet.dec_1.conv1x3_1.w", "erfnet.output_conv.w"),
+    "bra": ("conv_backbone.conv1.w", "conv_backbone.layer4_1.conv2.w",
+            "seg_head.up1.w", "classifier.w"),
+}
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12           # H100 SXM non-tensor f32
 INT8_OPS = 1979e12          # H100 SXM dense int8 tensor cores
@@ -159,6 +185,13 @@ TRAIN_LOSS_RTOL = 1e-4      # card vs CPU step: cuDNN's and the CPU's conv
 TRAIN_GNORM_RTOL = 1e-2     # sums, crop_shared_bwd's order and
 TRAIN_LEAF_L2 = 5e-2        # scatter_add's atomics, amplified by train-mode
                             # BN (the card differs from itself run to run)
+# the stage-1 trainers' step 1, card vs CPU (loss rtol, grad_norm rtol,
+# leaf L2): the BEV step as the distillation step; the camera steps' own
+# gradients move by 0.2% (brake) and 2-5% (seg, its dropout masks fixed)
+# when the images are scaled by 1 + 1e-6 (tests/test_torch_rgb_train.py)
+PRIV_TOLS = {"bev": (TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_LEAF_L2),
+             "seg": (1e-4, 2e-2, 1e-1),
+             "bra": (1e-4, 1e-2, 5e-2)}
 AGENT_ATOL = 1e-3           # cuDNN vs CPU conv summation order, f32
 AGENT_RTOL = 1e-3
 PROD_ATOL = 3e-2            # the int8 golden's (test_golden_production.py)
@@ -186,10 +219,11 @@ def cuda_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_split(torch, fn, iters: int = 20, warmup: int = 2) -> dict:
-    """{kernel or fill: its mean device-only ms per fn() call}, from
-    torch.profiler over `iters` runs; {} when the profiler recorded no
-    device activity in three runs (it now and then records none)."""
+def profiled(torch, fn, iters: int = 20, warmup: int = 2):
+    """torch.profiler's key_averages() over `iters` runs of fn() and
+    {kernel or fill: its mean device-only ms per call}; the split is {}
+    when the profiler recorded no device activity in three runs (it now
+    and then records none)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -202,12 +236,18 @@ def device_split(torch, fn, iters: int = 20, warmup: int = 2) -> dict:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
+        avgs = prof.key_averages()
         split = {e.key: e.self_device_time_total / iters / 1e3
-                 for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA}
+                 for e in avgs if e.device_type == DeviceType.CUDA}
         if sum(split.values()) > 0:
-            return split
-    return {}
+            return avgs, split
+    return avgs, {}
+
+
+def device_split(torch, fn, iters: int = 20, warmup: int = 2) -> dict:
+    """{kernel or fill: its mean device-only ms per fn() call}
+    (`profiled`)."""
+    return profiled(torch, fn, iters, warmup)[1]
 
 
 def device_ms(torch, fn, iters: int = 20, warmup: int = 2) -> float:
@@ -372,11 +412,70 @@ def phase_crop(ctx):
     if not err <= CROP_F32_ATOL:
         raise AssertionError("crop_shared (scalar path) disagrees with plain")
     del src, grid
+    bev = _crop_bev(torch, ctx, dev)
     q8 = _crop_q8(torch, ctx, dev)
     res["q8"], res["q8_s2d"] = q8["q8"], q8["s2d"]
     res["float32"].update({f"bf16_{k}": v for k, v in res["bfloat16"].items()
                            if k != "bound_by"})
+    res["float32"].update({f"bev_{k}": v for k, v in bev.items()})
     ctx["crop"] = res
+
+
+def _crop_bev(torch, ctx, dev):
+    """crop_shared at the BEV trainer's shapes (phase privileged):
+    B_BEV sources of the v2 BEV (320x320x9 f32), K = max_num_cars = 5
+    rotated crops of 192x192 each (ppm 4, offset_y as the trainer's), item
+    0's first straddling the border and its second wholly outside;
+    against its plain version, timed beside it and F.grid_sample."""
+    import torch.nn.functional as F
+
+    from lav_tpu_torch.config import v2_config
+    from lav_tpu_torch.core.warp import (
+        affine_grid, crop_shared, crop_theta, grid_sample_shared,
+    )
+
+    cfg = v2_config()
+    B, K, crop = B_BEV, cfg.max_num_cars, cfg.crop_size * 2
+    H, W, C = cfg.ny, cfg.nx, cfg.bev_input_channels
+    g = torch.Generator(device="cpu").manual_seed(2)
+    src = torch.rand((B, H, W, C), generator=g).to(dev)
+    locs = torch.randn((B, K, 2), generator=g) * 8.0
+    oris = (torch.rand((B, K), generator=g) * 2 - 1) * math.pi
+    locs[0, 0] = torch.tensor([38.0, -39.0])
+    locs[0, 1] = torch.tensor([1e3, -1e3])
+    theta = crop_theta(locs.reshape(-1, 2), oris.reshape(-1), H, W,
+                       float(cfg.pixels_per_meter), crop, 0.0, cfg.y_offset)
+    grid = affine_grid(theta, crop, crop).reshape(B, K, crop, crop, 2).to(
+        dev).contiguous()
+    out = crop_shared(src, grid)
+    ref = grid_sample_shared(src, grid)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    far = out[0, 1].abs().max().item()
+    log("crop", f"BEV B={B} {H}x{W}x{C}, K={K} crops of {crop}: max_abs_err "
+        f"{err:.3e} (tol {CROP_F32_ATOL:.0e}), far crop max |out| {far}")
+    if not (err <= CROP_F32_ATOL and far == 0.0):
+        raise AssertionError("crop_shared disagrees with plain at the BEV "
+                             "trainer's shapes")
+    del ref
+    nchw = src.permute(0, 3, 1, 2)
+    with torch.backends.cudnn.flags(enabled=False):
+        lib_ms = cuda_ms(torch, lambda: [
+            F.grid_sample(nchw[b:b + 1].expand(K, C, H, W), grid[b],
+                          mode="bilinear", padding_mode="zeros",
+                          align_corners=True) for b in range(B)], iters=5)
+    nbytes = src.numel() * 4 + grid.numel() * 4 + out.numel() * 4
+    bms, by = bound_ms(nbytes, B * K * crop * crop * (8 * C + 24))
+    r = dict(max_abs_err=err, ms=cuda_ms(torch, lambda: crop_shared(src, grid)),
+             plain_ms=cuda_ms(torch, lambda: grid_sample_shared(src, grid),
+                              iters=3, warmup=1),
+             library_ms=lib_ms, bound_ms=bms, bound_by=by)
+    log("crop", f"BEV: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+        f"ms, F.grid_sample {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}, "
+        f"{nbytes / 1e6:.1f} MB) on {ctx.get('smi', '?')}")
+    del src, grid, out
+    torch.cuda.empty_cache()
+    return r
 
 
 def _q8_check(torch, label, out, ref, far=None):
@@ -1985,10 +2084,107 @@ def phase_train_kernels(ctx):
         "pillar_scatter_max_bwd": _canvas_bwd_case(torch, ctx, dev)}
 
 
-def phase_train(ctx):
+def _card_vs_cpu(ctx, phase, label, cpu_models, cpu_batch, run, leaves,
+                 tols):
+    """Step 1 of a train step on the card, twice (its own spread: atomics
+    and some cuDNN kernels add in another order in every run), and on the
+    CPU, from copies of `cpu_models` and `cpu_batch`: run(models, batch,
+    device) -> metrics.  Logs loss, grad_norm and the gradient leaves
+    `leaves` in L2 against the CPU; returns the names outside `tols` =
+    (loss rtol, grad_norm rtol, leaf L2)."""
     import copy
 
+    runs = []
+    for dev in (ctx["device"], ctx["device"], "cpu"):
+        models = copy.deepcopy(cpu_models).to(dev)
+        t0 = time.perf_counter()
+        m = run(models, {k: v.to(dev) for k, v in cpu_batch.items()}, dev)
+        secs = time.perf_counter() - t0
+        p = dict(models.named_parameters())
+        runs.append(({k: float(m[k]) for k in ("loss", "grad_norm")},
+                     {n: p[n].grad.cpu() for n in leaves}, secs))
+        del models, p
+    (g1, g1_leaves, _), (g2, g2_leaves, _), (c, c_leaves, cpu_s) = runs
+    bad = []
+    for k, rtol in zip(("loss", "grad_norm"), tols):
+        rel = abs(g1[k] - c[k]) / abs(c[k])
+        log(phase, f"{label} B=2 step 1 {k}: card {g1[k]:.7g}, CPU "
+            f"{c[k]:.7g}, rel {rel:.3e} (rtol {rtol}); card run to run "
+            f"{abs(g1[k] - g2[k]) / abs(c[k]):.3e}")
+        if not rel <= rtol:
+            bad.append(f"{label} {k}")
+    for name in leaves:
+        a, b = g1_leaves[name], c_leaves[name]
+        rel = float((a - b).norm() / b.norm())
+        spread = float((a - g2_leaves[name]).norm() / b.norm())
+        log(phase, f"{label} B=2 step 1 grad {name}: L2 rel {rel:.3e} (tol "
+            f"{tols[2]}), card run to run {spread:.3e}, max |g| "
+            f"{b.abs().max().item():.4g}")
+        if not rel <= tols[2]:
+            bad.append(f"{label} {name}")
+    log(phase, f"{label}: the CPU step took {cpu_s:.1f} s")
+    return bad
+
+
+def _card_steps(ctx, phase, label, run, B):
+    """7 steps of run() -> metrics on the card: the launches of every
+    kernel in each of the first 3, loss and grad_norm finite, the p50
+    step over steps 2-7, samples/s and peak memory (since the caller's
+    reset), then one more step under torch.profiler: its device busy time,
+    launches, host syncs, top kernels and top host ops.  Returns (per-step
+    launches of the first 3, the counts after them)."""
     import numpy as np
+    import torch
+
+    from lav_tpu_torch.utils import native
+
+    native.reset_launches()
+    per_step, step_ms, losses = [], [], []
+    for i in range(7):
+        before = dict(native.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = run()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append((float(m["loss"]), float(m["grad_norm"])))
+        if i < 3:
+            per_step.append({k: native.LAUNCHES[k] - before[k]
+                             for k in native.LAUNCHES})
+            if i == 2:
+                totals = dict(native.LAUNCHES)
+    log(phase, f"{label}: launches per step "
+        f"{[{k: v for k, v in c.items() if v} for c in per_step]}; "
+        f"(loss, grad_norm) {losses}")
+    if not np.isfinite(np.array(losses)).all():
+        raise AssertionError(f"{label}: non-finite loss or grad_norm")
+    p50 = statistics.median(step_ms[1:])
+    log(phase, f"{label}: step ms {[round(t, 3) for t in step_ms]}; p50 over "
+        f"steps 2-7 {p50:.3f} ms, {B / p50 * 1e3:.2f} samples/s, peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on "
+        f"{ctx.get('smi', '?')}")
+    from torch.autograd import DeviceType
+
+    avgs, split = profiled(torch, run, iters=1, warmup=0)
+    busy = sum(split.values())
+    top = sorted(split.items(), key=lambda kv: -kv[1])[:12]
+    host = [e for e in avgs if e.device_type != DeviceType.CUDA]
+    count = {e.key: e.count for e in host}
+    log(phase, f"{label}: one step under the profiler: device busy "
+        f"{busy:.3f} ms ({busy / p50:.1%} of the p50), {len(split)} kernel "
+        f"names, {count.get('cudaLaunchKernel', 0)} + "
+        f"{count.get('cudaLaunchKernelExC', 0)} launches, "
+        f"{count.get('cudaStreamSynchronize', 0)} stream syncs; top: "
+        + "; ".join(
+            f"{re.sub(r'[(]anonymous namespace[)]::|^void ', '', k).split('(')[0][:60]} {v:.3f}"
+            for k, v in top))
+    log(phase, f"{label}: host self ms: " + "; ".join(
+        f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.3f} x{e.count}"
+        for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:8]))
+    return per_step, totals
+
+
+def phase_train(ctx):
     import torch
 
     from lav_tpu_torch.config import v2_config
@@ -1996,101 +2192,114 @@ def phase_train(ctx):
     from lav_tpu_torch.train.distill import (
         adam, distill_models, distill_setup, make_batch, make_full_train_step,
     )
-    from lav_tpu_torch.utils import native
 
     # step 1 on the card against the port on the CPU: B = 2, the same
-    # weights, batch and noise; the card twice, to show its own spread
-    # (scatter_add's atomics and some cuDNN kernels add in another order
-    # in every run)
+    # weights, batch and noise
     cfg = v2_config()
-    cpu_models = distill_models(cfg, torch.Generator().manual_seed(0))
-    cpu_batch = make_batch(cfg, 2, MAX_POINTS_TRAIN, seed=0, device="cpu")
     noise = draw_noise(torch.Generator().manual_seed(1), 2,
                        cfg.max_objs - 1, cfg.max_num_cars_student)
     step = make_full_train_step(cfg, v2=True, mode="full")
-    runs = []
-    for dev in (ctx["device"], ctx["device"], "cpu"):
-        models = copy.deepcopy(cpu_models).to(dev)
-        t0 = time.perf_counter()
-        m = step(models, adam(models), {k: v.to(dev) for k, v in
-                                        cpu_batch.items()},
-                 noise={k: v.to(dev) for k, v in noise.items()})
-        secs = time.perf_counter() - t0
-        p = dict(models.named_parameters())
-        runs.append(({k: float(m[k]) for k in ("loss", "grad_norm")},
-                     {n: p[n].grad.cpu() for n in TRAIN_LEAVES}, secs))
-        del models, p
-    (g1, g1_leaves, _), (g2, g2_leaves, _), (c, c_leaves, cpu_s) = runs
-    bad = []
-    for k, rtol in (("loss", TRAIN_LOSS_RTOL),
-                    ("grad_norm", TRAIN_GNORM_RTOL)):
-        rel = abs(g1[k] - c[k]) / abs(c[k])
-        log("train", f"B=2 step 1 {k}: card {g1[k]:.7g}, CPU {c[k]:.7g}, "
-            f"rel {rel:.3e} (rtol {rtol}); card run to run "
-            f"{abs(g1[k] - g2[k]) / abs(c[k]):.3e}")
-        if not rel <= rtol:
-            bad.append(k)
-    for name in TRAIN_LEAVES:
-        a, b = g1_leaves[name], c_leaves[name]
-        rel = float((a - b).norm() / b.norm())
-        spread = float((a - g2_leaves[name]).norm() / b.norm())
-        log("train", f"B=2 step 1 grad {name}: L2 rel {rel:.3e} (tol "
-            f"{TRAIN_LEAF_L2}), card run to run {spread:.3e}, max |g| "
-            f"{b.abs().max().item():.4g}")
-        if not rel <= TRAIN_LEAF_L2:
-            bad.append(name)
-    log("train", f"the CPU step took {cpu_s:.1f} s")
+    bad = _card_vs_cpu(
+        ctx, "train", "distill",
+        distill_models(cfg, torch.Generator().manual_seed(0)),
+        make_batch(cfg, 2, MAX_POINTS_TRAIN, seed=0, device="cpu"),
+        lambda m, b, dev: step(m, adam(m), b, noise={
+            k: v.to(dev) for k, v in noise.items()}),
+        TRAIN_LEAVES, (TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_LEAF_L2))
     if bad:
         raise AssertionError(f"train step 1, card vs CPU: {bad}")
-    del cpu_models, cpu_batch, runs
     torch.cuda.empty_cache()
 
-    # the slice: B = NUM_EGO_TRAIN, MAX_POINTS_TRAIN points, 3 steps with
+    # full width: B = NUM_EGO_TRAIN, MAX_POINTS_TRAIN points, 3 steps with
     # launch counts, then 4 more, timed
+    torch.cuda.reset_peak_memory_stats()
     step, models, opt, batch, gen, _ = distill_setup(
         NUM_EGO_TRAIN, MAX_POINTS_TRAIN, device=ctx["device"], seed=0)
-    native.reset_launches()
-    per_step, step_ms, losses = [], [], []
-    for i in range(7):
-        before = dict(native.LAUNCHES)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        m = step(models, opt, batch, gen)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append((float(m["loss"]), float(m["grad_norm"])))
-        if i < 3:
-            per_step.append({k: native.LAUNCHES[k] - before[k]
-                             for k in TRAIN_KERNELS})
-            if i == 2:
-                ctx["launches_train"] = {k: native.LAUNCHES[k]
-                                         for k in TRAIN_KERNELS}
-    log("train", f"B={NUM_EGO_TRAIN}, {MAX_POINTS_TRAIN} points: launches "
-        f"per step {per_step}; (loss, grad_norm) {losses}")
-    if any(min(c.values()) < 1 or c["crop_shared_bwd"] != 2
+    per_step, totals = _card_steps(
+        ctx, "train", f"distill B={NUM_EGO_TRAIN}, {MAX_POINTS_TRAIN} points",
+        lambda: step(models, opt, batch, gen), NUM_EGO_TRAIN)
+    ctx["launches_train"] = {k: totals[k] for k in TRAIN_KERNELS}
+    if any(min(c[k] for k in TRAIN_KERNELS) < 1 or c["crop_shared_bwd"] != 2
            for c in per_step):
         raise AssertionError("a kernel of the train step missed a step, or "
                              "crop_shared_bwd ran other than on the "
                              "student's two crops")
-    if not np.isfinite(np.array(losses)).all():
-        raise AssertionError(f"non-finite loss or grad_norm: {losses}")
-    p50 = statistics.median(step_ms[1:])
-    ctx["train_p50_ms"] = p50
-    log("train", f"step ms {[round(t, 3) for t in step_ms]}; p50 over steps "
-        f"2-7 {p50:.3f} ms, {NUM_EGO_TRAIN / p50 * 1e3:.2f} samples/s, peak "
-        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on "
-        f"{ctx.get('smi', '?')}")
-    # where a step's device time goes: one more step under torch.profiler
-    split = device_split(torch, lambda: step(models, opt, batch, gen),
-                         iters=1, warmup=0)
-    busy = sum(split.values())
-    top = sorted(split.items(), key=lambda kv: -kv[1])[:12]
-    log("train", f"one step under the profiler: device busy {busy:.3f} ms "
-        f"({busy / p50:.1%} of the p50), {len(split)} kernel names; top: "
-        + "; ".join(f"{re.sub(r'[(]anonymous namespace[)]::|^void ', '', k).split('(')[0][:60]} {v:.3f}"
-                    for k, v in top))
     del step, models, opt, batch
     torch.cuda.empty_cache()
+
+
+def phase_privileged(ctx):
+    import torch
+
+    from lav_tpu_torch.config import v1_config, v2_config
+    from lav_tpu_torch.models.planner import BEVPlanner, draw_bev_noise
+    from lav_tpu_torch.models.rgb import BrakeModel, SegModel
+    from lav_tpu_torch.train import privileged as TP
+    from lav_tpu_torch.train.distill import adam
+
+    def seeded(seed):
+        return torch.Generator().manual_seed(seed)
+
+    def moved(d, dev):
+        return {k: v.to(dev) for k, v in d.items()}
+
+    # step 1 of each trainer on the card against the port on the CPU: B =
+    # 2 at full width, the same weights, batch, noise and dropout masks
+    # (drawn once on the CPU)
+    cfg, cfg1 = v2_config(), v1_config()
+    n_sem = len(cfg1.seg_channels)
+    bev_step = TP.make_bev_train_step(cfg, v2=True)
+    noise = draw_bev_noise(seeded(1), 2, cfg.max_objs - 1, cfg.max_num_cars)
+    seg = SegModel(n_sem, seeded(0))
+    masks = seg.erfnet.draw_masks(seeded(1), (2, 3, *TP.SEG_HW))
+    seg_step = TP.make_seg_train_step(cfg1)
+    bra_step = TP.make_bra_train_step(cfg1, version=2)
+    cases = (
+        ("bev", BEVPlanner(cfg, seeded(0)), TP.bev_batch(cfg, 2, 0, "cpu"),
+         lambda m, b, dev: bev_step(m, adam(m), b, noise=moved(noise, dev))),
+        ("seg", seg, TP.seg_batch(2, n_sem, 0, "cpu"),
+         lambda m, b, dev: seg_step(m, adam(m), b, masks=moved(masks, dev))),
+        ("bra", BrakeModel(2, seeded(0)), TP.bra_batch(2, 0, "cpu"),
+         lambda m, b, dev: bra_step(m, adam(m), b)),
+    )
+    bad = []
+    for name, models, batch, run in cases:
+        bad += _card_vs_cpu(ctx, "privileged", name, models, batch, run,
+                            PRIV_LEAVES[name], PRIV_TOLS[name])
+    if bad:
+        raise AssertionError(f"privileged step 1, card vs CPU: {bad}")
+    del cases, seg, masks
+    torch.cuda.empty_cache()
+
+    # each trainer at full width: 3 steps with launch counts, 4 more timed
+    dev = ctx["device"]
+    for name, B in (("bev", B_BEV), ("seg", B_SEG), ("bra", B_BRA)):
+        torch.cuda.reset_peak_memory_stats()
+        if name == "bev":
+            step, models, opt, batch, gen, _ = TP.bev_setup(B, device=dev)
+            label = f"bev v2 B={B}"
+        elif name == "seg":
+            step, models, opt, batch, gen, _ = TP.seg_setup(B, device=dev)
+            label = f"seg B={B}"
+        else:
+            step, models, opt, batch, _ = TP.bra_setup(B, device=dev,
+                                                       version=2)
+            gen, label = None, f"bra v2 B={B}"
+        run = ((lambda: step(models, opt, batch)) if gen is None else
+               (lambda: step(models, opt, batch, gen)))
+        per_step, totals = _card_steps(ctx, "privileged", label, run, B)
+        if name == "bev":
+            ctx["launches_privileged"] = totals
+            if any(c["crop_shared"] < 2 or c["crop_shared_bwd"]
+                   for c in per_step):
+                raise AssertionError("the BEV step must launch crop_shared "
+                                     "twice a step and crop_shared_bwd "
+                                     "never")
+        elif any(sum(c.values()) for c in per_step):
+            raise AssertionError(f"the {name} step launched a kernel of "
+                                 "the port; it runs library convs only")
+        del step, models, opt, batch, gen, run
+        torch.cuda.empty_cache()
 
 
 def kernels_line(ctx):
@@ -2100,7 +2309,8 @@ def kernels_line(ctx):
     conv2d_int8, the variants tick for crop_shared_q8_s2d and
     pillar_scatter_max_bf16, the gather probe for take_along_rows, the
     distillation step (3 steps) for crop_shared_bwd and
-    pillar_scatter_max_bwd."""
+    pillar_scatter_max_bwd; crop_shared's row adds `bev_launches`, the
+    BEV trainer's (3 steps), with its `bev_*` times from phase crop."""
     crop, scatter = ctx.get("crop", {}), ctx.get("scatter", {})
     train = ctx.get("train_kernels", {})
     specs = (
@@ -2136,6 +2346,9 @@ def kernels_line(ctx):
                          replaces=replaces,
                          launches=ctx.get(f"launches_{path}", {}).get(name, 0),
                          **r))
+        if name == "crop_shared":
+            rows[-1]["bev_launches"] = ctx.get(
+                "launches_privileged", {}).get(name, 0)
     return {"kernels": rows}
 
 

@@ -7,17 +7,19 @@ kernel of lav_tpu on the ported path is a CUDA C++ kernel under `csrc/`,
 built with `nvcc` for `sm_90a` at first use and bound with `ctypes`.
 
 Package layout:
-  config.py  LAVConfig, v2_config, tiny_config (a copy)
+  config.py  LAVConfig, v1_config, v2_config, tiny_config (a copy)
   nn/        layers, ResNet, ERFNet, attention pooling (nn.Modules)
   core/      geometry, affine crops (kernel `crop_shared`), the BEV seg
              loss mask
   ops/       point painting, pillar featurizer (kernel `pillar_scatter_max`),
              peak decode
-  models/    LiDAR model, camera nets, UniPlanner inference and training
-             forward with its BEV teacher, the distillation losses
+  models/    LiDAR model, camera nets (the brake net's auxiliary seg
+             head), the BEV planner's and the UniPlanner's inference and
+             training forwards, the losses
   agent/     EKF, PID, control, the batched agent tick, setup helper
-  train/     the distillation train step (kernels `crop_shared_bwd`,
-             `pillar_scatter_max_bwd` in its backward)
+  train/     the stage-1 trainers (BEV planner, camera segmentation,
+             brake net) and the distillation train step (kernels
+             `crop_shared_bwd`, `pillar_scatter_max_bwd` in its backward)
   utils/     device selection, kernel build/load, weight conversion, BN
              state merge
 """

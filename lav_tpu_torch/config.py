@@ -177,6 +177,11 @@ class LAVConfig:
         return dataclasses.replace(self, **kw)
 
 
+def v1_config(**overrides) -> LAVConfig:
+    """The v1 training configuration (reference config.yaml)."""
+    return LAVConfig().replace(**overrides)
+
+
 def v2_config(**overrides) -> LAVConfig:
     """The v2 training configuration (reference config_v2.yaml)."""
     cfg = LAVConfig(

@@ -1,5 +1,6 @@
-"""Losses of the distillation step (counterpart of the functions of
-`lav_tpu/models/losses.py` that `train/distill.py` uses).
+"""Losses of the train steps (counterpart of the functions of
+`lav_tpu/models/losses.py` that `train/privileged.py` and
+`train/distill.py` use).
 
 Formula for formula lav_tpu's: every ragged reduction of LAV (selected
 cars, brake-free frames) is a masked mean over fixed-capacity slots, and
@@ -39,6 +40,13 @@ def masked_mean(x, mask, dim=None):
     return num / torch.clamp(den, min=1.0)
 
 
+def cross_entropy(logits, labels, dim: int = -1):
+    """Integer-label cross entropy over `dim` (torch F.cross_entropy with
+    no reduction): -log_softmax(logits)[label]."""
+    logp = F.log_softmax(logits, dim=dim)
+    return -torch.gather(logp, dim, labels.long().unsqueeze(dim)).squeeze(dim)
+
+
 def det_loss(pred_heatmaps, heatmaps, pred_sizemaps, sizemaps,
              pred_orimaps, orimaps):
     """CenterNet-style detection loss on (B, 2, H, W) maps, heatmaps as
@@ -73,6 +81,12 @@ def plan_loss_all_cmds(ego_plan_locs, target, idxs=None, item_weights=None):
     if idxs is None:
         return per_item.mean()
     return masked_mean(per_item, idxs)
+
+
+def cast_loss_at_cmd(ego_cast_locs, ego_gt, cmds):
+    """L1 of the cast (B, C, T, 2) at each item's command against the GT
+    future (B, T, 2)."""
+    return torch.abs(gather_cmd(ego_cast_locs, cmds) - ego_gt).mean()
 
 
 def other_cast_loss_min_mode(other_cast_locs, other_gt, car_valid):

@@ -1,5 +1,6 @@
-"""UniPlanner inference and training forward, and the frozen BEVPlanner
-teacher (counterpart of `lav_tpu/models/planner.py`).
+"""UniPlanner inference and training forward, and the BEVPlanner: the
+frozen teacher of the distillation step, and its own train forward and
+inference (counterpart of `lav_tpu/models/planner.py`).
 
 The planner core: a bank of per-command cast GRUs (stacked weights), a
 shared plan GRU refined `num_plan_iter` times, cumulative-sum waypoint
@@ -28,6 +29,13 @@ student's crop ResNet runs in train mode, called on the other cars'
 crops, then on the ego's: its BN update is the ego call's (lav_tpu keeps
 `{"lidar_conv_emb": st_ego}`), which `BatchNorm.new_stats` gives, since
 the later call overwrites it.
+
+`bev_planner_forward` is the BEV planner's own train forward (lav_tpu
+`planner.py:207-289`, the stage-1 BEV step of `train/privileged.py`): up
+to `max_num_cars` other cars picked as the student picks them, their
+jittered crops of the ground-truth BEV and the ego's unjittered one
+through `crop_shared` (the BEV is data: no backward kernel), the ego's
+BN update kept.  `bev_planner_infer` plans from the ego crop alone.
 """
 
 from __future__ import annotations
@@ -59,12 +67,15 @@ def _add_core(m: nn.Module, C: int, gen) -> None:
 
 class BEVPlanner(nn.Module):
     """The privileged planner: a ResNet18 over BEV crops and its own core
-    (lav_tpu `bev_planner_init`)."""
+    (lav_tpu `bev_planner_init`).  Built in eval mode (inference,
+    `bev_planner_infer`); `.train()` for its train step
+    (`bev_planner_forward`)."""
 
     def __init__(self, cfg: LAVConfig, gen=None):
         super().__init__()
         self.bev_conv_emb = resnet18(cfg.bev_input_channels, gen=gen)
         _add_core(self, cfg.num_cmds, gen)
+        self.eval()
 
 
 class UniPlanner(nn.Module):
@@ -353,3 +364,111 @@ def uniplanner_forward(core: UniPlanner, cfg: LAVConfig, features, bev,
         ego_plan_locs_expert=ego_plan_locs_expert,
         car_valid=car_valid,
     )
+
+
+# ---------------------------------------------------------------------------
+# the BEV planner's own train forward and inference (lav_tpu
+# planner.py:173-310)
+# ---------------------------------------------------------------------------
+
+class PlannerOutputs(NamedTuple):
+    """The BEV planner's train forward results (lav_tpu `PlannerOutputs`)."""
+    other_locs: torch.Tensor        # (B, K, T, 2) GT future of picked cars
+    other_cast_locs: torch.Tensor   # (B, K, C, T, 2)
+    other_cast_cmds: torch.Tensor   # (B, K, C)
+    ego_plan_locs: torch.Tensor     # (B, I, C, T, 2)
+    ego_cast_locs: torch.Tensor     # (B, C, T, 2)
+    ego_cast_cmds: torch.Tensor     # (B, C)
+    car_valid: torch.Tensor         # (B, K) bool
+
+
+def draw_bev_noise(gen, B: int, N: int, K: int, device=None) -> dict:
+    """The uniform draws of one `bev_planner_forward`, on the CPU generator
+    `gen`, moved to `device`: `scores` (B, N) for the pick among the N
+    other slots, `loc` (B, K, 2) and `ori` (B, K) for the picked cars'
+    crop jitter.  (lav_tpu splits its key into r_sel for the scores and
+    r_jit, and r_jit into the keys of loc and ori.)"""
+    shapes = dict(scores=(B, N), loc=(B, K, 2), ori=(B, K))
+    return {k: torch.rand(v, generator=gen).to(device)
+            for k, v in shapes.items()}
+
+
+def bev_planner_forward(planner: BEVPlanner, cfg: LAVConfig, bev, ego_locs,
+                        locs, oris, nxps, typs, noise) -> PlannerOutputs:
+    """The BEV planner's train forward (lav_tpu `bev_planner_forward`,
+    train=True when `planner` is in train mode, else no jitter).  bev (B,
+    H, W, Cin) the ground-truth BEV, data with no gradient; ego_locs (B,
+    T+1, 2); locs (B, N, T+1, 2), oris (B, N), typs (B, N) with slot 0
+    the ego; nxps (B, 2); noise from `draw_bev_noise`.
+
+    Up to K = cfg.max_num_cars other cars ahead, picked by the noise's
+    scores, are cropped from the BEV rotated into their frames (jittered
+    in train mode), then the ego at zero jitter: both through kernel
+    `crop_shared` on the card.  The crop ResNet runs on the others' crops,
+    then on the ego's, so that its BN update is the ego call's, as
+    lav_tpu keeps it."""
+    B = bev.shape[0]
+    K, T, I = cfg.max_num_cars, cfg.num_plan, cfg.num_plan_iter
+    ppm, crop = cfg.pixels_per_meter, cfg.crop_size * 2
+    ego_oris = oris[:, 0]
+    o_locs, o_oris, o_typs = locs[:, 1:], oris[:, 1:], typs[:, 1:]
+    idx, car_valid = select_cars(noise["scores"], ego_locs, o_locs, o_typs,
+                                 K)
+    sel_locs = gather_cars(o_locs, idx)
+    sel_oris = gather_cars(o_oris, idx)
+    rel_loc0 = sel_locs[:, :, 0] - ego_locs[:, None, 0]
+    rel_ori0 = sel_oris - ego_oris[:, None]
+    fut = sel_locs[:, :, 1:] - sel_locs[:, :, :1]
+    if planner.training:
+        loc_jit, ori_jit = jitter(noise["loc"], noise["ori"],
+                                  cfg.feature_x_jitter,
+                                  math.radians(cfg.feature_angle_jitter))
+    else:
+        loc_jit = torch.zeros_like(rel_loc0)
+        ori_jit = torch.zeros_like(rel_ori0)
+    crop_other = crop_feature_shared(bev, rel_loc0 + loc_jit,
+                                     rel_ori0 + ori_jit,
+                                     pixels_per_meter=ppm, crop_size=crop,
+                                     offset_y=cfg.y_offset)
+    other_locs = transform_points(fut - loc_jit[:, :, None],
+                                  -rel_ori0 - ori_jit)
+    other_embd = conv_emb(planner.bev_conv_emb,
+                          crop_other.reshape(B * K, *crop_other.shape[2:]))
+    other_cast_locs = cast(planner, other_embd, T)
+    other_cast_cmds = cast_cmd_pred(planner, other_embd)
+
+    crop_ego = crop_feature(bev, bev.new_zeros((B, 2)), bev.new_zeros((B,)),
+                            pixels_per_meter=ppm, crop_size=crop,
+                            offset_y=cfg.y_offset)
+    ego_embd = conv_emb(planner.bev_conv_emb, crop_ego)
+    ego_cast_locs = cast(planner, ego_embd, T)
+    ego_plan_locs = plan(planner, ego_embd, nxps, ego_cast_locs, num_plan=T,
+                         num_plan_iter=I, pixels_per_meter=ppm,
+                         crop_size=crop)
+    C = cfg.num_cmds
+    return PlannerOutputs(
+        other_locs=other_locs,
+        other_cast_locs=other_cast_locs.reshape(B, K, C, T, 2),
+        other_cast_cmds=other_cast_cmds.reshape(B, K, C),
+        ego_plan_locs=ego_plan_locs,
+        ego_cast_locs=ego_cast_locs,
+        ego_cast_cmds=cast_cmd_pred(planner, ego_embd),
+        car_valid=car_valid,
+    )
+
+
+def bev_planner_infer(planner: BEVPlanner, cfg: LAVConfig, bev, nxps):
+    """Inference from the ego's zero-jitter crop (lav_tpu
+    `bev_planner_infer`), `planner` in eval mode: bev (B, H, W, C), nxps
+    (B, 2) -> (plan_locs (B, I, C, T, 2), cast_locs (B, C, T, 2),
+    cast_cmds (B, C))."""
+    B, crop = bev.shape[0], cfg.crop_size * 2
+    crop_ego = crop_feature(bev, bev.new_zeros((B, 2)), bev.new_zeros((B,)),
+                            pixels_per_meter=cfg.pixels_per_meter,
+                            crop_size=crop, offset_y=cfg.y_offset)
+    embd = conv_emb(planner.bev_conv_emb, crop_ego)
+    cast_locs = cast(planner, embd, cfg.num_plan)
+    plan_locs = plan(planner, embd, nxps, cast_locs, num_plan=cfg.num_plan,
+                     num_plan_iter=cfg.num_plan_iter,
+                     pixels_per_meter=cfg.pixels_per_meter, crop_size=crop)
+    return plan_locs, cast_locs, cast_cmd_pred(planner, embd)

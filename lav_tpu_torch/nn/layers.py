@@ -328,6 +328,22 @@ def max_pool2d(x, ksize: int, stride: int, padding: int = 0):
     return y.permute(0, 2, 3, 1)
 
 
+def dropout(x, mask, rate: float):
+    """lav_tpu's train-mode dropout with its mask given: where(mask, x /
+    keep, 0), keep = 1 - rate; `mask` a bool tensor of x's shape, True
+    where x is kept."""
+    keep = 1.0 - rate
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
+def dropout_mask(gen, shape, rate: float, device=None):
+    """A dropout mask of `shape` drawn from the torch.Generator `gen`,
+    which lives on `device` (the activation's): True with probability 1 -
+    rate, as jax.random.bernoulli(key, 1 - rate, shape) draws it."""
+    return torch.rand(shape, generator=gen, device=device) < (1.0 - rate)
+
+
 def interpolate_nearest(x, scale: int):
     """F.interpolate(scale_factor=s) nearest mode on NHWC input."""
     return x.repeat_interleave(scale, dim=1).repeat_interleave(scale, dim=2)

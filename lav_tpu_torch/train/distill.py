@@ -146,6 +146,19 @@ def make_distill_forward(cfg: LAVConfig, v2: bool = False,
     return forward
 
 
+def optimizer_step(models, optimizer, loss, metrics) -> dict:
+    """The tail of every train step: backward, `grad_norm` (optax's global
+    norm over every gradient) into `metrics`, the optimizer step and the
+    BN merge; returns the metrics detached."""
+    loss.backward()
+    grads = [p.grad for p in models.parameters() if p.grad is not None]
+    metrics["grad_norm"] = torch.sqrt(
+        torch.stack([(g * g).sum() for g in grads]).sum())
+    optimizer.step()
+    merge_bn_state(models)
+    return {k: v.detach() for k, v in metrics.items()}
+
+
 def make_full_train_step(cfg: LAVConfig, v2: bool = False,
                          mode: str = "full"):
     """step(models, optimizer, batch, gen=None, noise=None) -> metrics:
@@ -163,13 +176,7 @@ def make_full_train_step(cfg: LAVConfig, v2: bool = False,
                                device=batch["typs"].device)
         optimizer.zero_grad(set_to_none=True)
         loss, metrics = forward(models, batch, noise)
-        loss.backward()
-        grads = [p.grad for p in models.parameters() if p.grad is not None]
-        metrics["grad_norm"] = torch.sqrt(
-            torch.stack([(g * g).sum() for g in grads]).sum())
-        optimizer.step()
-        merge_bn_state(models)
-        return {k: v.detach() for k, v in metrics.items()}
+        return optimizer_step(models, optimizer, loss, metrics)
 
     return step
 

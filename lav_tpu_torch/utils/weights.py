@@ -22,10 +22,11 @@ Keys a module lists in `jax_unused` (training-only parts) are skipped:
 an inference `UniPlanner` skips the teacher `bev_planner` and the
 never-evaluated `other` cast bank, which `UniPlanner(cfg, teacher=True)`
 (the distillation step's, `train/distill.py`) loads like every other
-leaf; the `BrakeModel` skips its auxiliary seg head.
-Every other key must have a counterpart and every parameter and buffer
-must be filled, or the load raises.  int8 leaves stay int8; every other
-leaf is converted to f32.
+leaf.  Every other key must have a counterpart and every parameter and
+persistent buffer must be filled, or the load raises (a non-persistent
+buffer, such as the `BrakeModel`'s normalisation constants, is no
+lav_tpu param).  int8 leaves stay int8; every other leaf is converted to
+f32.
 
 `load_calibration` sets static activation scales from lav_tpu's
 calibration JSON (`artifacts/calib/*.json`: lav_tpu param path -> scale).
@@ -153,8 +154,8 @@ def load_jax_params(module: nn.Module, tree) -> nn.Module:
     """Fill `module` from the lav_tpu params `tree`; returns the module."""
     filled: set = set()
     _walk(module, tree, "", filled)
-    missing = [name for name, t in list(module.named_parameters())
-               + list(module.named_buffers()) if id(t) not in filled]
+    missing = [name for name, t in module.state_dict(keep_vars=True).items()
+               if id(t) not in filled]
     if missing:
         raise KeyError(f"lav_tpu params leave these unset: {missing[:8]}")
     return module

@@ -450,8 +450,8 @@ def test_port_imports_neither_jax_nor_lav_tpu():
     offenders = []
     paths = sorted((REPO / "lav_tpu_torch").rglob("*.py"))
     # the training modules are walked too
-    for name in ("train/distill.py", "models/losses.py", "utils/tree.py",
-                 "core/heatmap.py"):
+    for name in ("train/distill.py", "train/privileged.py",
+                 "models/losses.py", "utils/tree.py", "core/heatmap.py"):
         assert REPO / "lav_tpu_torch" / name in paths, name
     for path in paths:
         for node in ast.walk(ast.parse(path.read_text())):

@@ -59,7 +59,7 @@ from lav_tpu.utils.tree import merge_bn_state as j_merge_bn_state
 from lav_tpu_torch.config import tiny_config as t_tiny_config
 from lav_tpu_torch.train import distill as TD
 from lav_tpu_torch.utils.weights import load_jax_params
-from tests.torch_parity import assert_close, jax_tree
+from tests.torch_parity import check_grads, check_update, jax_tree
 
 CFG = tiny_config()
 TCFG = t_tiny_config()
@@ -143,19 +143,9 @@ def _as_port(tree):
 
 def _check_step(tag, models, metrics, ref_metrics, ref_grads, grad_tol):
     gnorm_rtol, leaf_l2, all_l2 = grad_tol
-    for k, v in ref_metrics.items():
-        rtol = gnorm_rtol if k == "grad_norm" else METRIC_RTOL
-        assert_close(f"{tag}.{k}", metrics[k], v, atol=0, rtol=rtol)
-    want = dict(_as_port(ref_grads).named_parameters())
-    gnorm = float(ref_metrics["grad_norm"])
-    total = 0.0
-    for name, p in models.named_parameters():
-        got = p.grad if p.grad is not None else torch.zeros_like(p)
-        err = float((got.detach() - want[name].detach()).norm())
-        total += err * err
-        scale = float(want[name].detach().norm())
-        assert err <= leaf_l2 * scale + FLOOR * gnorm, (tag, name, err, scale)
-    assert total ** 0.5 <= all_l2 * gnorm, (tag, total ** 0.5, gnorm)
+    check_grads(tag, models, metrics, ref_metrics, _as_port(ref_grads),
+                dict(metric=METRIC_RTOL, grad_norm=gnorm_rtol, leaf=leaf_l2,
+                     all=all_l2, floor=FLOOR))
 
 
 def _check_update(tag, models, ref_params, ref_grads, upd_tol, close):
@@ -163,24 +153,8 @@ def _check_update(tag, models, ref_params, ref_grads, upd_tol, close):
     `upd_tol` where the two gradients of this and every earlier step
     agree (`close`, name -> mask, updated here), to Adam's bound
     elsewhere (see the module note)."""
-    want_m = _as_port(ref_params)
-    want = dict(want_m.named_parameters())
-    grads = dict(_as_port(ref_grads).named_parameters())
-    for name, p in models.named_parameters():
-        g, w = grads[name].detach(), want[name].detach()
-        mine = p.grad if p.grad is not None else torch.zeros_like(p)
-        err = (p.detach() - w).abs()
-        sure = close.get(name, True) & (g.abs() >= SURE_G) & (
-            (mine - g).abs() <= SURE_REL * g.abs())
-        close[name] = sure
-        if sure.any():
-            worst = float((err[sure] - upd_tol - 1e-6 * w[sure].abs()).max())
-            assert worst <= 0, (tag, name, worst)
-        assert float(err.max()) <= 2 * LR + 1e-6, (tag, name)
-    bufs = dict(want_m.named_buffers())
-    for name, b in models.named_buffers():
-        assert_close(f"{tag}.{name}", b, bufs[name], atol=STAT_TOL,
-                     rtol=STAT_TOL)
+    check_update(tag, models, _as_port(ref_params), _as_port(ref_grads),
+                 upd_tol, close, LR, STAT_TOL, SURE_G, SURE_REL)
 
 
 def test_v2_full_one_and_two_steps_match_lav_tpu():
