@@ -78,31 +78,43 @@ Phases, each printing its own line and raising on failure:
           conv2d_int8 launches every tick, crop_shared_q8 and scatter_max
           none; controls, CPU parity and the p50 tick as in production
   train_kernels  the distillation step's two backward kernels against
-          their plain versions: crop_shared_bwd on the student's crops of
-          a step (4 items, 4 other-car crops and the ego's, 96x96 from a
-          160x160x384 map; one straddling the border, one wholly outside),
-          per cell within CROP_BWD_RTOL of its sum of |g w|, two calls
-          equal bit for bit, a crop outside adding nothing, and on crops
-          turned by 0, pi/4, pi/2, 3pi/4, pi and -3pi/4, crop 64 from 160,
-          crops straddling each border, a 157x163 source and C = 6;
-          pillar_scatter_max_bwd on the inputs one step (4 x 16384 points)
-          hands it (the forward's sort among them, read as the backward
-          reads it) and on crafted ties (2, 3 and 40 equal maxima, ties at
-          0), dropped ids, empty rows and a hot row of 5,000 points, exact,
-          on the forward's sort and sorting itself; host-paced and
-          device-only ms and host us per call beside the library's
-          gradient (F.grid_sample's input gradient by autograd; autograd
-          through scatter_reduce "amax", which splits ties too)
+          their plain versions, in f32 and in bf16 (crop_shared_bwd_bf16,
+          pillar_scatter_max_bwd_bf16): crop_shared_bwd on the student's
+          crops of a step (4 items, 4 other-car crops and the ego's, 96x96
+          from a 160x160x384 map; one straddling the border, one wholly
+          outside), per cell within CROP_BWD_RTOL of its sum of |g w| (and
+          in bf16 CROP_BWD_BF16_ULPS bf16 ulp beyond it), two calls equal
+          bit for bit, a crop outside adding nothing, and on crops turned
+          by 0, pi/4, pi/2, 3pi/4, pi and -3pi/4, crop 64 from 160, crops
+          straddling each border, a 157x163 source and C = 6;
+          pillar_scatter_max_bwd on the inputs one step (4 x 16384
+          points; the bf16 step's for bf16) hands it (the forward's sort
+          among them, read as the backward reads it) and on crafted ties
+          (2, 3 and 40 equal maxima, ties at 0; hot rows of 255, 256, 257,
+          300 and 1000 ties, which bf16 counts up to 256), dropped ids,
+          empty rows and a hot row of 5,000 points, exact, on the
+          forward's sort and sorting itself; both refuse f16 on the card;
+          host-paced and device-only ms and host us per call beside the
+          library's gradient (F.grid_sample's input gradient by autograd;
+          autograd through scatter_reduce "amax", which splits ties too)
   train   the v2 distillation step (lav_tpu.train.distill,
           make_full_train_step(v2_config(), Adam(3e-4), v2=True,
-          mode="full"), f32) at full width: step 1 at B = 2 on the card
+          mode="full")) at full width: step 1 at B = 2 on the card
           against the port on the CPU (the same weights from seed 0, batch
-          and noise) in loss, grad_norm and four gradient leaves; then B =
-          4 with 16384 points an item, 3 steps in which crop_shared,
-          crop_shared_bwd (exactly the student's two calls), pillar_scatter_max,
-          pillar_scatter_max_bwd and scatter_add each launch, with loss
-          and grad_norm finite, and 4 more: the p50 step over steps 2-7
-          and samples/s
+          and noise) in loss, grad_norm and four gradient leaves in f32;
+          in loss and grad_norm in bf16 (compute_dtype=bfloat16, lav_tpu's
+          --dtype), and the same four leaves of one bf16 forward and
+          backward with BatchNorm on its running statistics; then,
+          with 16384 points an item, 3 steps with launch counts and 4
+          more timed (p50 over steps 2-7, samples/s, peak memory, one
+          profiled step) of: f32 at B = 4 (crop_shared, crop_shared_bwd
+          exactly the student's two calls, pillar_scatter_max,
+          pillar_scatter_max_bwd once, scatter_add), bf16 at B = 4 (the
+          same with crop_shared_bwd_bf16, pillar_scatter_max_bf16 and
+          pillar_scatter_max_bwd_bf16, and no f32 backward), and f32 at
+          lav_tpu's default batch, B = 32, with remat=True (the scoped
+          student-crop checkpoint inside it; the recomputes launch the
+          forward kernels again, the backward kernels run as often)
   privileged  the stage-1 trainers (lav_tpu.train.privileged) in f32 at
           full width: step 1 of each at B = 2 on the card against the port
           on the CPU (the same weights from seed 0, batch, noise and
@@ -153,6 +165,11 @@ MAX_POINTS_TRAIN = 16384    # lav_tpu/utils/bench_train.py --max-points
 K_TRAIN = 4                 # v2_config().max_num_cars_student
 TRAIN_KERNELS = ("crop_shared", "crop_shared_bwd", "pillar_scatter_max",
                  "pillar_scatter_max_bwd", "scatter_add")
+TRAIN_BF16_KERNELS = ("crop_shared", "crop_shared_bwd_bf16",
+                      "pillar_scatter_max_bf16",
+                      "pillar_scatter_max_bwd_bf16", "scatter_add")
+B_REF = 32                  # lav_tpu/train/cli.py:239, the full stage's
+                            # default batch
 TRAIN_LEAVES = ("lidar_model.point_pillar.linear_0.w",
                 "lidar_model.backbone.conv2_0.conv.w",
                 "uniplanner.lidar_conv_emb.conv1.w",
@@ -181,6 +198,7 @@ SCATTER_ADD_RTOL = 1e-6     # of the pillar's sum of |v|: atomics add in
                             # another order (see phase_scatter)
 CROP_BWD_RTOL = 4e-6        # of a cell's sum of |g w|: up to ~60 terms
                             # added in any order, (n - 1) 2^-24 each
+CROP_BWD_BF16_ULPS = 1.0    # bf16: each side rounds its f32 sum once
 TRAIN_LOSS_RTOL = 1e-4      # card vs CPU step: cuDNN's and the CPU's conv
 TRAIN_GNORM_RTOL = 1e-2     # sums, crop_shared_bwd's order and
 TRAIN_LEAF_L2 = 5e-2        # scatter_add's atomics, amplified by train-mode
@@ -189,6 +207,18 @@ TRAIN_LEAF_L2 = 5e-2        # scatter_add's atomics, amplified by train-mode
 # leaf L2): the BEV step as the distillation step; the camera steps' own
 # gradients move by 0.2% (brake) and 2-5% (seg, its dropout masks fixed)
 # when the images are scaled by 1 + 1e-6 (tests/test_torch_rgb_train.py)
+# the bf16 step's step 1, card vs CPU: loss rtol, grad_norm rtol (measured
+# on an H100 80GB HBM3 at 700 W: 1.6e-3, 8.6e-3).  Its gradient leaves are
+# not compared: train-mode BN turns bf16 rounding at other places in
+# cuDNN's and the CPU's convs into leaves that lie about their own size
+# apart (0.86-0.97 in L2 there; tests/test_torch_train_bf16.py).  They are
+# held in one bf16 forward and backward of the step's loss with BN on its
+# running statistics (models in eval mode): loss rtol, grad_norm rtol,
+# leaf L2, which a zeroed (1.0) or sign-flipped (2.0) leaf fails
+# (measured there: 4.7e-6, 2.4e-6, 2.0e-3-5.1e-2)
+TRAIN_BF16_TOLS = (1e-2, 5e-2)
+TRAIN_BF16_EVAL_TOLS = (1e-4, 1e-3, 0.15)
+EVAL_LEAF = ("lidar_model.backbone.conv1_0.conv.w",)   # for the point MLP's
 PRIV_TOLS = {"bev": (TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_LEAF_L2),
              "seg": (1e-4, 2e-2, 1e-1),
              "bra": (1e-4, 1e-2, 5e-2)}
@@ -1741,15 +1771,17 @@ def _profile_one(ctx, config, setup):
         raise AssertionError("the profiler saw no device time")
 
 
-def _student_crop_grids(torch, dev, B=NUM_EGO_TRAIN):
+def _student_crop_grids(torch, dev, B=NUM_EGO_TRAIN, H=160, ppm=2.0,
+                        crop=96):
     """The distillation step's student crop grids at full width: per item
     K_TRAIN other-car crops and the ego crop, 96x96 from the 160x160
     feature map (ppm / 2 = 2), jittered poses; item 0's first crop
-    straddles the border and its second lies wholly outside."""
+    straddles the border and its second lies wholly outside.  With H =
+    320, ppm = 4, crop = 192: the teacher's crops of the BEV at the same
+    poses."""
     from lav_tpu_torch.core.warp import affine_grid, crop_theta
 
     g = torch.Generator(device="cpu").manual_seed(7)
-    H, crop = 160, 96
     grids = []
     for K in (K_TRAIN, 1):
         locs = torch.randn((B, K, 2), generator=g) * 3.0
@@ -1757,28 +1789,104 @@ def _student_crop_grids(torch, dev, B=NUM_EGO_TRAIN):
         if K > 1:
             locs[0, 0] = torch.tensor([38.0, -39.0])
             locs[0, 1] = torch.tensor([1e3, -1e3])
-        theta = crop_theta(locs.reshape(-1, 2), oris.reshape(-1), H, H, 2.0,
+        theta = crop_theta(locs.reshape(-1, 2), oris.reshape(-1), H, H, ppm,
                            crop, 0.0, 0.75)
         grids.append(affine_grid(theta, crop, crop).reshape(
             B, K, crop, crop, 2).to(dev).contiguous())
     return grids
 
 
+def _crop_fwd_step(torch, ctx, dev, dtype):
+    """Kernel crop_shared on the distillation step's four calls in `dtype`
+    (the student's crops of the 160x160x384 features, K_TRAIN others and
+    the ego, 96x96; the teacher's of the 320x320x9 BEV at the same poses,
+    192x192), against its plain version (f32 to CROP_F32_ATOL, bf16 to
+    CROP_BF16_ULPS of the largest value), timed as the step's four beside
+    its bound, the plain version and F.grid_sample."""
+    import torch.nn.functional as F
+
+    from lav_tpu_torch.core.warp import crop_shared, grid_sample_shared
+
+    g = torch.Generator(device="cpu").manual_seed(11)
+    calls = []
+    for (H, C, ppm, crop) in ((160, 384, 2.0, 96), (320, 9, 4.0, 192)):
+        src = torch.randn((NUM_EGO_TRAIN, H, H, C), generator=g).to(dev, dtype)
+        for grid in _student_crop_grids(torch, dev, H=H, ppm=ppm, crop=crop):
+            calls.append((src, grid))
+    err = 0.0
+    for src, grid in calls:
+        out = crop_shared(src, grid).float()
+        ref = grid_sample_shared(src, grid).float()
+        torch.cuda.synchronize()
+        e = (out - ref).abs().max().item()
+        tol = CROP_F32_ATOL if dtype == torch.float32 else (
+            CROP_BF16_ULPS * 2.0 ** -7 * 2.0 ** math.ceil(
+                math.log2(max(ref.abs().max().item(), 1e-30))))
+        if not (e <= tol and torch.isfinite(out).all()):
+            raise AssertionError(f"crop_shared {dtype} disagrees with plain "
+                                 f"at the step's shapes ({e} > {tol})")
+        err = max(err, e)
+    nbytes = sum(src.numel() * src.element_size() + grid.numel() * 4
+                 + grid[..., 0].numel() * src.shape[-1] * src.element_size()
+                 for src, grid in calls)
+    flops = sum(grid[..., 0].numel() * (8 * src.shape[-1] + 24)
+                for src, grid in calls)
+    lib_args = [(src.permute(0, 3, 1, 2), grid.to(dtype)) for src, grid in
+                calls]
+
+    def lib():
+        with torch.backends.cudnn.flags(enabled=False):
+            return [F.grid_sample(nchw[b:b + 1].expand(
+                grid.shape[1], *nchw.shape[1:]), grid[b], mode="bilinear",
+                padding_mode="zeros", align_corners=True)
+                for nchw, grid in lib_args for b in range(nchw.shape[0])]
+
+    bms, by = bound_ms(nbytes, flops)
+    r = dict(max_abs_err=err,
+             ms=cuda_ms(torch, lambda: [crop_shared(*a) for a in calls],
+                        iters=20),
+             device_ms=device_ms(torch, lambda: [crop_shared(*a)
+                                                 for a in calls]),
+             plain_ms=cuda_ms(torch, lambda: [grid_sample_shared(*a)
+                                              for a in calls], iters=3,
+                              warmup=1),
+             library_ms=cuda_ms(torch, lib, iters=5),
+             bound_ms=bms, bound_by=by)
+    log("train_kernels", f"crop_shared {str(dtype)[6:]} at the step's four "
+        f"calls ({nbytes / 1e6:.1f} MB): max_abs_err {err:.3e}; kernel "
+        f"{r['ms']:.4f} ms host-paced, {r['device_ms']:.4f} ms device-only, "
+        f"bound {bms:.4f} ms ({by}), plain {r['plain_ms']:.4f} ms, "
+        f"F.grid_sample {r['library_ms']:.4f} ms on {ctx.get('smi', '?')}")
+    del calls, lib_args
+    torch.cuda.empty_cache()
+    return r
+
+
 def _crop_bwd_check(torch, label, g, gr, H, W):
     """crop_shared_bwd(g, gr) against its plain version, per cell within
-    CROP_BWD_RTOL of the cell's sum of |g * w|; -> max abs error."""
+    CROP_BWD_RTOL of the cell's sum of |g * w| (both sum in f32, in
+    another order) and, for a bf16 g, CROP_BWD_BF16_ULPS bf16 ulp of the
+    larger result beyond that (each rounds its f32 sum once); -> max abs
+    error."""
     from lav_tpu_torch.core.warp import crop_shared_bwd, grid_sample_shared_bwd
 
-    out = crop_shared_bwd(g, gr, H, W)
-    ref = grid_sample_shared_bwd(g, gr, H, W)
-    mag = grid_sample_shared_bwd(g.abs(), gr, H, W)
+    out = crop_shared_bwd(g, gr, H, W).float()
+    ref = grid_sample_shared_bwd(g, gr, H, W).float()
+    mag = grid_sample_shared_bwd(g.abs().float(), gr, H, W)
     torch.cuda.synchronize()
-    excess = ((out - ref).abs() - CROP_BWD_RTOL * mag).max().item()
+    tol = CROP_BWD_RTOL * mag
+    if g.dtype == torch.bfloat16:   # the spacing of bf16 at the larger
+        big = torch.maximum(out.abs(), ref.abs()).clamp(min=2.0 ** -126)
+        tol = tol + CROP_BWD_BF16_ULPS * torch.exp2(
+            torch.floor(torch.log2(big)) - 7)
+    excess = ((out - ref).abs() - tol).max().item()
     err = (out - ref).abs().max().item()
-    log("train_kernels", f"crop_shared_bwd {label}: max_abs_err {err:.3e}, "
-        f"max |d_src| {ref.abs().max().item():.3f}, cells reached "
-        f"{(mag.amax(-1) > 0).float().mean().item():.3f}, excess over "
-        f"{CROP_BWD_RTOL:g} x sum|g w| {excess:.3e} (must be <= 0)")
+    log("train_kernels", f"crop_shared_bwd {str(g.dtype)[6:]} {label}: "
+        f"max_abs_err {err:.3e}, max |d_src| {ref.abs().max().item():.3f}, "
+        f"cells reached {(mag.amax(-1) > 0).float().mean().item():.3f}, "
+        f"excess over {CROP_BWD_RTOL:g} x sum|g w|"
+        + (f" + {CROP_BWD_BF16_ULPS:g} bf16 ulp" if g.dtype == torch.bfloat16
+           else "") + f" {excess:.3e} (must be <= 0)")
     if not (excess <= 0 and torch.isfinite(out).all()):
         raise AssertionError(f"crop_shared_bwd ({label}) disagrees with "
                              "plain")
@@ -1816,21 +1924,24 @@ def _crop_bwd_grids(torch, dev):
              160, 160, 6)]
 
 
-def _crop_bwd_case(torch, ctx, dev):
-    """Kernel crop_shared_bwd on the student's two calls of a step (K_TRAIN
-    crops, then the ego's) and on `_crop_bwd_grids` against its plain
-    version; a crop wholly outside adds nothing; two calls are equal bit
-    for bit; timed as the step's pair."""
+def _crop_bwd_case(torch, ctx, dev, dtype=None):
+    """Kernel crop_shared_bwd (f32, or crop_shared_bwd_bf16 with a bf16
+    `dtype`) on the student's two calls of a step (K_TRAIN crops, then the
+    ego's) and on `_crop_bwd_grids` against its plain version; a crop
+    wholly outside adds nothing; two calls are equal bit for bit; a
+    gradient of another dtype is refused on the card; timed as the step's
+    pair."""
     import torch.nn.functional as F
 
     from lav_tpu_torch.core.warp import crop_shared_bwd, grid_sample_shared_bwd
 
+    dtype = dtype or torch.float32
     H = W = 160
     C = 384
     grids = _student_crop_grids(torch, dev)
     gen = torch.Generator(device="cpu").manual_seed(8)
-    gs = [torch.randn(tuple(gr.shape[:4]) + (C,), generator=gen).to(dev)
-          for gr in grids]
+    gs = [torch.randn(tuple(gr.shape[:4]) + (C,), generator=gen).to(
+        dev, dtype) for gr in grids]
     worst = 0.0
     for gr, g in zip(grids, gs):
         worst = max(worst, _crop_bwd_check(torch, f"K={gr.shape[1]}", g, gr,
@@ -1843,10 +1954,17 @@ def _crop_bwd_case(torch, ctx, dev):
                                     gr[:1, 1:2].contiguous(), H, W)
             if alone.abs().max().item() != 0.0:
                 raise AssertionError("a crop outside the source added to it")
-    log("train_kernels", "crop_shared_bwd: two calls on the step's inputs "
-        "equal bit for bit (must be)")
+    log("train_kernels", f"crop_shared_bwd {str(dtype)[6:]}: two calls on "
+        "the step's inputs equal bit for bit (must be)")
+    try:
+        crop_shared_bwd(gs[1].half(), grids[1], H, W)
+    except TypeError as e:
+        log("train_kernels", f"crop_shared_bwd refuses f16 on the card: {e}")
+    else:
+        raise AssertionError("crop_shared_bwd took an f16 gradient")
     for label, gr, h, w, c in _crop_bwd_grids(torch, dev):
-        g = torch.randn(tuple(gr.shape[:4]) + (c,), generator=gen).to(dev)
+        g = torch.randn(tuple(gr.shape[:4]) + (c,), generator=gen).to(
+            dev, dtype)
         worst = max(worst, _crop_bwd_check(torch, label, g, gr, h, w))
 
     def kernel():
@@ -1858,14 +1976,16 @@ def _crop_bwd_case(torch, ctx, dev):
 
     # library yardstick, timed only: F.grid_sample's input gradient by
     # autograd on the NCHW form (each item's source expanded over its
-    # crops), the forward taken once outside the timing
+    # crops; in bf16 with a bf16 grid, as it requires), the forward taken
+    # once outside the timing
     srcs, outs, gouts = [], [], []
     for gr, g in zip(grids, gs):
         B, K = gr.shape[:2]
-        src = torch.zeros((B, C, H, W), device=dev, requires_grad=True)
+        src = torch.zeros((B, C, H, W), device=dev, dtype=dtype,
+                          requires_grad=True)
         with torch.backends.cudnn.flags(enabled=False):
             o = torch.cat([F.grid_sample(src[b:b + 1].expand(K, C, H, W),
-                                         gr[b], mode="bilinear",
+                                         gr[b].to(dtype), mode="bilinear",
                                          padding_mode="zeros",
                                          align_corners=True)
                            for b in range(B)])
@@ -1876,12 +1996,14 @@ def _crop_bwd_case(torch, ctx, dev):
     def lib():
         return torch.autograd.grad(outs, srcs, gouts, retain_graph=True)
 
-    r = _timed(torch, ctx, "crop_shared_bwd", kernel, plain, lib)
-    nbytes = sum(g.numel() * 4 + gr.numel() * 4 + gr.shape[0] * H * W * C * 4
+    name = "crop_shared_bwd" + ("_bf16" if dtype == torch.bfloat16 else "")
+    r = _timed(torch, ctx, name, kernel, plain, lib)
+    e = gs[0].element_size()
+    nbytes = sum(g.numel() * e + gr.numel() * 4 + gr.shape[0] * H * W * C * e
                  for g, gr in zip(gs, grids))
     flops = sum(g.numel() * 8 for g in gs)
     r["bound_ms"], r["bound_by"] = bound_ms(nbytes, flops)
-    log("train_kernels", f"crop_shared_bwd (a step's two calls, "
+    log("train_kernels", f"{name} (a step's two calls, "
         f"{nbytes / 1e6:.1f} MB): bound {r['bound_ms']:.4f} ms "
         f"({r['bound_by']}); device-only "
         f"{r['device_ms'] / r['bound_ms']:.2f}x the bound on "
@@ -1908,16 +2030,17 @@ def _timed(torch, ctx, name, kernel, plain, lib):
     return r
 
 
-def _canvas_bwd_inputs(torch, ctx):
+def _canvas_bwd_inputs(torch, ctx, compute_dtype=None):
     """The (g, feat, pid, canvas, sort) that one distillation step (B =
-    NUM_EGO_TRAIN, MAX_POINTS_TRAIN points an item) hands kernel
-    pillar_scatter_max_bwd, taken by wrapping the wrapper; the step must
-    hand it the forward's sort."""
+    NUM_EGO_TRAIN, MAX_POINTS_TRAIN points an item, in `compute_dtype`)
+    hands kernel pillar_scatter_max_bwd, taken by wrapping the wrapper;
+    the step must hand it the forward's sort."""
     from lav_tpu_torch.ops import pillar
     from lav_tpu_torch.train.distill import distill_setup
 
     step, models, opt, batch, gen, _ = distill_setup(
-        NUM_EGO_TRAIN, MAX_POINTS_TRAIN, device=ctx["device"], seed=0)
+        NUM_EGO_TRAIN, MAX_POINTS_TRAIN, device=ctx["device"], seed=0,
+        compute_dtype=compute_dtype)
     real, seen = pillar.pillar_scatter_max_bwd, []
 
     def spy(*args):
@@ -1938,12 +2061,14 @@ def _canvas_bwd_inputs(torch, ctx):
     return seen[0]
 
 
-def _canvas_bwd_cases(torch, dev):
-    """Crafted (label, g, feat, pid, canvas, sort) cases: ties of 2, 3 and
-    40 equal maxima, ties at 0, dropped ids (negative and past S), empty
-    rows, C = 4 (the vector path), C = 6 (the scalar path) and 64; and one
-    hot row of 5,000 points (above CANVAS_HOT: counted by whole blocks in
-    chunks) of which 300 tie in every channel."""
+def _canvas_bwd_cases(torch, dev, dtype=None):
+    """Crafted (label, g, feat, pid, canvas, sort) cases in `dtype` (f32
+    unless given): ties of 2, 3 and 40 equal maxima, ties at 0, dropped
+    ids (negative and past S), empty rows, C = 4 (the vector path), C = 6
+    (the scalar path) and 64; one hot row (above CANVAS_HOT: counted by
+    whole blocks in chunks) of 5,000 points of which 300 tie in every
+    channel; and hot rows of 255, 256, 257, 300 and 1,000 points tied in
+    every channel (bf16 counts ties up to 256)."""
     from lav_tpu_torch.ops.pillar import pillar_scatter_max
 
     g = torch.Generator(device="cpu").manual_seed(9)
@@ -1972,11 +2097,25 @@ def _canvas_bwd_cases(torch, dev):
                                          # every other value
     pid[5000:5100] = -1                  # dropped ids
     cases.append(("a hot row of 5000 points", S, feat, pid))
+    g2 = torch.Generator(device="cpu").manual_seed(10)
+    sizes = (255, 256, 257, 300, 1000)
+    S = 20
+    feat = torch.rand((sum(sizes) + 100, 64), generator=g2)
+    pid = torch.randint(len(sizes), S, (feat.shape[0],), generator=g2)
+    at = 0
+    for row, n in enumerate(sizes):      # ties at 0 in channel 0, at 3.0
+        pid[at:at + n] = row             # in the others
+        feat[at:at + n] = 3.0
+        feat[at:at + n, 0] = 0.0
+        at += n
+    cases.append(("rows of 255-1000 tied points", S, feat, pid))
     out = []
     for label, S, feat, pid in cases:
-        feat, pid = feat.to(dev), pid.to(torch.int32).to(dev)
+        feat = feat.to(dev, dtype or torch.float32)
+        pid = pid.to(torch.int32).to(dev)
         canvas, sort = pillar_scatter_max(feat, pid, S, keep_sort=True)
-        grad = torch.randn((S, feat.shape[1]), generator=g).to(dev)
+        grad = torch.randn((S, feat.shape[1]), generator=g).to(
+            dev, feat.dtype)
         out.append((label, grad, feat, pid, canvas, sort))
     return out
 
@@ -1988,36 +2127,39 @@ def _canvas_sort_check(torch, label, feat, pid, canvas, sort):
         _i32, canvas_chunk, canvas_layout, read_canvas_sort,
     )
 
-    (N, C), S = feat.shape, canvas.shape[0]
-    offsets, idx = read_canvas_sort(sort, N, C, S, 4)
+    (N, C), S, e = feat.shape, canvas.shape[0], feat.element_size()
+    offsets, idx = read_canvas_sort(sort, N, C, S, e)
     p = pid.long()
     ok = (p >= 0) & (p < S)
     counts = torch.bincount(p[ok], minlength=S)
     rows = torch.repeat_interleave(torch.arange(S, device=p.device),
                                    offsets.diff())
-    chunk = _i32(sort, canvas_layout(N, C, S, 4)["meta"], 3)[2].item()
+    chunk = _i32(sort, canvas_layout(N, C, S, e)["meta"], 3)[2].item()
     good = (torch.equal(offsets[1:], counts.cumsum(0)) and offsets[0] == 0
             and torch.equal(p[idx], rows)
             and torch.equal(torch.sort(idx).values,
                             torch.nonzero(ok).flatten())
-            and (feat.data_ptr() % 16 or chunk == canvas_chunk(C, 4)))
+            and (feat.data_ptr() % 16 or chunk == canvas_chunk(C, e)))
     if not good:
         raise AssertionError(f"pillar_scatter_max's sort ({label}) is not "
                              "laid out as read_canvas_sort reads it")
 
 
-def _canvas_bwd_case(torch, ctx, dev):
-    """Kernel pillar_scatter_max_bwd against its plain version, exact, by
-    both routes (on the forward's sort, and sorting itself), on the step's
-    own inputs, on crafted ties and on a hot row; the forward's sort as
-    the backward reads it; timed on the step's, by both routes."""
+def _canvas_bwd_case(torch, ctx, dev, dtype=None):
+    """Kernel pillar_scatter_max_bwd (f32, or pillar_scatter_max_bwd_bf16
+    with a bf16 `dtype`) against its plain version, exact, by both routes
+    (on the forward's sort, and sorting itself), on the step's own inputs
+    (the bf16 step's in bf16), on crafted ties and on hot rows; the
+    forward's sort as the backward reads it; another dtype refused on the
+    card; timed on the step's, by both routes."""
     from lav_tpu_torch.ops.pillar import (
-        NEG, pillar_scatter_max_bwd, pillar_scatter_max_bwd_plain,
+        NEG, pillar_scatter_max_bwd, pillar_scatter_max_bwd_plain, tie_count,
     )
 
-    step_args = _canvas_bwd_inputs(torch, ctx)
+    step_args = _canvas_bwd_inputs(torch, ctx, dtype)
+    dtype = step_args[1].dtype
     for label, *args in [("the step's", *step_args)] + _canvas_bwd_cases(
-            torch, dev):
+            torch, dev, dtype):
         g, feat, pid, canvas, sort = args
         _canvas_sort_check(torch, label, feat, pid, canvas, sort)
         ref = pillar_scatter_max_bwd_plain(g, feat, pid, canvas)
@@ -2029,23 +2171,31 @@ def _canvas_bwd_case(torch, ctx, dev):
         ok = (pid >= 0) & (pid < S)
         s = torch.where(ok, pid.long(), 0)
         tie = ok[:, None] & (feat == canvas[s])
-        n = torch.zeros_like(canvas).index_add_(0, s, tie.float())
+        n = torch.zeros_like(canvas, dtype=torch.int64).index_add_(
+            0, s, tie.long())
         equal = {k: torch.equal(v, ref) for k, v in routes.items()}
-        log("train_kernels", f"pillar_scatter_max_bwd {label}: "
-            f"{feat.shape[0]} points x {feat.shape[1]}, {S} rows, most "
-            f"points a row {int(torch.bincount(s[ok]).max().item())}, tied "
-            f"cells {(n > 1).sum().item()} (most {int(n.max().item())} "
-            f"points), dropped ids {(~ok).sum().item()}, equal {equal} "
-            "(must be)")
+        log("train_kernels", f"pillar_scatter_max_bwd {str(dtype)[6:]} "
+            f"{label}: {feat.shape[0]} points x {feat.shape[1]}, {S} rows, "
+            f"most points a row {int(torch.bincount(s[ok]).max().item())}, "
+            f"tied cells {(n > 1).sum().item()} (most {int(n.max().item())} "
+            f"points, counted as {float(tie_count(n.max(), dtype)):g}), "
+            f"dropped ids {(~ok).sum().item()}, equal {equal} (must be)")
         if not all(equal.values()):
             raise AssertionError(f"pillar_scatter_max_bwd ({label}) "
                                  "disagrees with plain")
     g, feat, pid, canvas, sort = step_args
+    try:
+        pillar_scatter_max_bwd(g.half(), feat.half(), pid, canvas.half())
+    except ValueError as e:
+        log("train_kernels", "pillar_scatter_max_bwd refuses f16 on the "
+            f"card: {str(e)[:60]}...")
+    else:
+        raise AssertionError("pillar_scatter_max_bwd took f16")
     S, C = canvas.shape
     ok = (pid >= 0) & (pid < S)
     idx = pid.long()[ok][:, None].expand(-1, C)
     fvalid = feat[ok].detach().clone().requires_grad_(True)
-    lib_canvas = torch.full((S, C), NEG, device=dev).scatter_reduce(
+    lib_canvas = torch.full((S, C), NEG, device=dev, dtype=dtype).scatter_reduce(
         0, idx, fvalid, "amax", include_self=True)
 
     def lib():
@@ -2054,18 +2204,21 @@ def _canvas_bwd_case(torch, ctx, dev):
     def alone():
         return pillar_scatter_max_bwd(g, feat, pid, canvas)
 
-    r = _timed(torch, ctx, "pillar_scatter_max_bwd",
+    name = "pillar_scatter_max_bwd" + ("_bf16" if dtype == torch.bfloat16
+                                       else "")
+    r = _timed(torch, ctx, name,
                lambda: pillar_scatter_max_bwd(*step_args),
                lambda: pillar_scatter_max_bwd_plain(*step_args[:4]), lib)
     r["standalone_ms"] = cuda_ms(torch, alone, iters=20)
     r["standalone_device_ms"] = device_ms(torch, alone)
-    log("train_kernels", f"pillar_scatter_max_bwd standalone (sorting "
-        f"itself): {r['standalone_ms']:.4f} ms host-paced, "
+    log("train_kernels", f"{name} standalone (sorting itself): "
+        f"{r['standalone_ms']:.4f} ms host-paced, "
         f"{r['standalone_device_ms']:.4f} ms device-only")
     rows = torch.unique(pid[ok]).numel()
-    nbytes = 2 * feat.numel() * 4 + pid.numel() * 4 + 2 * rows * C * 4
+    e = feat.element_size()
+    nbytes = 2 * feat.numel() * e + pid.numel() * 4 + 2 * rows * C * e
     r["bound_ms"], r["bound_by"] = bound_ms(nbytes, feat.numel())
-    log("train_kernels", f"pillar_scatter_max_bwd ({rows} touched rows, "
+    log("train_kernels", f"{name} ({rows} touched rows, "
         f"{nbytes / 1e6:.1f} MB): bound {r['bound_ms']:.4f} ms "
         f"({r['bound_by']}); device-only "
         f"{r['device_ms'] / r['bound_ms']:.2f}x the bound on "
@@ -2079,9 +2232,15 @@ def phase_train_kernels(ctx):
     import torch
 
     dev = torch.device(ctx["device"])
+    bf16 = torch.bfloat16
     ctx["train_kernels"] = {
+        "crop_shared_step": _crop_fwd_step(torch, ctx, dev, torch.float32),
+        "crop_shared_step_bf16": _crop_fwd_step(torch, ctx, dev, bf16),
         "crop_shared_bwd": _crop_bwd_case(torch, ctx, dev),
-        "pillar_scatter_max_bwd": _canvas_bwd_case(torch, ctx, dev)}
+        "crop_shared_bwd_bf16": _crop_bwd_case(torch, ctx, dev, bf16),
+        "pillar_scatter_max_bwd": _canvas_bwd_case(torch, ctx, dev),
+        "pillar_scatter_max_bwd_bf16": _canvas_bwd_case(torch, ctx, dev,
+                                                        bf16)}
 
 
 def _card_vs_cpu(ctx, phase, label, cpu_models, cpu_batch, run, leaves,
@@ -2091,7 +2250,7 @@ def _card_vs_cpu(ctx, phase, label, cpu_models, cpu_batch, run, leaves,
     CPU, from copies of `cpu_models` and `cpu_batch`: run(models, batch,
     device) -> metrics.  Logs loss, grad_norm and the gradient leaves
     `leaves` in L2 against the CPU; returns the names outside `tols` =
-    (loss rtol, grad_norm rtol, leaf L2)."""
+    (loss rtol, grad_norm rtol[, leaf L2 when there are `leaves`])."""
     import copy
 
     runs = []
@@ -2190,42 +2349,85 @@ def phase_train(ctx):
     from lav_tpu_torch.config import v2_config
     from lav_tpu_torch.models.planner import draw_noise
     from lav_tpu_torch.train.distill import (
-        adam, distill_models, distill_setup, make_batch, make_full_train_step,
+        adam, distill_models, distill_setup, make_batch,
+        make_distill_forward, make_full_train_step,
     )
 
     # step 1 on the card against the port on the CPU: B = 2, the same
-    # weights, batch and noise
+    # weights, batch and noise; f32, then bf16 (lav_tpu's --dtype), then
+    # the bf16 step's gradients with BN on its running statistics
     cfg = v2_config()
     noise = draw_noise(torch.Generator().manual_seed(1), 2,
                        cfg.max_objs - 1, cfg.max_num_cars_student)
-    step = make_full_train_step(cfg, v2=True, mode="full")
-    bad = _card_vs_cpu(
-        ctx, "train", "distill",
-        distill_models(cfg, torch.Generator().manual_seed(0)),
-        make_batch(cfg, 2, MAX_POINTS_TRAIN, seed=0, device="cpu"),
-        lambda m, b, dev: step(m, adam(m), b, noise={
-            k: v.to(dev) for k, v in noise.items()}),
-        TRAIN_LEAVES, (TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_LEAF_L2))
-    if bad:
-        raise AssertionError(f"train step 1, card vs CPU: {bad}")
-    torch.cuda.empty_cache()
+    bf16_forward = make_distill_forward(cfg, v2=True, mode="full",
+                                        compute_dtype=torch.bfloat16)
 
-    # full width: B = NUM_EGO_TRAIN, MAX_POINTS_TRAIN points, 3 steps with
-    # launch counts, then 4 more, timed
-    torch.cuda.reset_peak_memory_stats()
-    step, models, opt, batch, gen, _ = distill_setup(
-        NUM_EGO_TRAIN, MAX_POINTS_TRAIN, device=ctx["device"], seed=0)
-    per_step, totals = _card_steps(
-        ctx, "train", f"distill B={NUM_EGO_TRAIN}, {MAX_POINTS_TRAIN} points",
-        lambda: step(models, opt, batch, gen), NUM_EGO_TRAIN)
-    ctx["launches_train"] = {k: totals[k] for k in TRAIN_KERNELS}
-    if any(min(c[k] for k in TRAIN_KERNELS) < 1 or c["crop_shared_bwd"] != 2
-           for c in per_step):
-        raise AssertionError("a kernel of the train step missed a step, or "
-                             "crop_shared_bwd ran other than on the "
-                             "student's two crops")
-    del step, models, opt, batch
-    torch.cuda.empty_cache()
+    def moved(dev):
+        return {k: v.to(dev) for k, v in noise.items()}
+
+    def train_step(dtype):
+        step = make_full_train_step(cfg, v2=True, mode="full",
+                                    compute_dtype=dtype)
+        return lambda m, b, dev: step(m, adam(m), b, noise=moved(dev))
+
+    def eval_grads(m, b, dev):
+        loss, metrics = bf16_forward(m.eval(), b, moved(dev))
+        loss.backward()
+        # the inference route's canvas max (kernel scatter_max) has no
+        # backward: on the card the point MLP takes no gradient in eval
+        # mode, so neither side counts it
+        for p in m["lidar_model"].point_pillar.parameters():
+            p.grad = None
+        metrics["grad_norm"] = torch.sqrt(sum(
+            (p.grad * p.grad).sum() for p in m.parameters()
+            if p.grad is not None))
+        return metrics
+
+    for label, run, leaves, tols in (
+            ("distill", train_step(None), TRAIN_LEAVES,
+             (TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_LEAF_L2)),
+            ("distill bf16", train_step(torch.bfloat16), (),
+             TRAIN_BF16_TOLS),
+            ("distill bf16, BN on its running statistics", eval_grads,
+             TRAIN_LEAVES[1:] + EVAL_LEAF, TRAIN_BF16_EVAL_TOLS)):
+        bad = _card_vs_cpu(
+            ctx, "train", label,
+            distill_models(cfg, torch.Generator().manual_seed(0)),
+            make_batch(cfg, 2, MAX_POINTS_TRAIN, seed=0, device="cpu"),
+            run, leaves, tols)
+        if bad:
+            raise AssertionError(f"train step 1, card vs CPU: {bad}")
+        torch.cuda.empty_cache()
+
+    # full width, MAX_POINTS_TRAIN points, 3 steps with launch counts, then
+    # 4 more, timed: f32 and bf16 at B = NUM_EGO_TRAIN, then f32 at the
+    # reference's default batch with remat (the scoped student-crop
+    # checkpoint runs inside it)
+    runs = (("train", "distill", NUM_EGO_TRAIN, {}, TRAIN_KERNELS),
+            ("train_bf16", "distill bf16", NUM_EGO_TRAIN,
+             dict(compute_dtype=torch.bfloat16), TRAIN_BF16_KERNELS),
+            ("train_b32", "distill remat", B_REF, dict(remat=True),
+             TRAIN_KERNELS))
+    for path, label, B, kw, kernels in runs:
+        torch.cuda.reset_peak_memory_stats()
+        step, models, opt, batch, gen, _ = distill_setup(
+            B, MAX_POINTS_TRAIN, device=ctx["device"], seed=0, **kw)
+        per_step, totals = _card_steps(
+            ctx, "train", f"{label} B={B}, {MAX_POINTS_TRAIN} points",
+            lambda: step(models, opt, batch, gen), B)
+        ctx[f"launches_{path}"] = {k: totals[k] for k in kernels}
+        bwd = [k for k in kernels if "_bwd" in k]
+        others = [k for k in TRAIN_KERNELS + TRAIN_BF16_KERNELS
+                  if k not in kernels]
+        if any(min(c[k] for k in kernels) < 1 or c[bwd[0]] != 2
+               or c[bwd[1]] != 1 or any(c[k] for k in others)
+               for c in per_step):
+            raise AssertionError(
+                f"{label}: a kernel of {kernels} missed a step, {bwd[0]} "
+                f"ran other than on the student's two crops or {bwd[1]} "
+                f"other than once, or one of {others} ran")
+        del step, models, opt, batch
+        torch.cuda.empty_cache()
 
 
 def phase_privileged(ctx):
@@ -2309,8 +2511,11 @@ def kernels_line(ctx):
     conv2d_int8, the variants tick for crop_shared_q8_s2d and
     pillar_scatter_max_bf16, the gather probe for take_along_rows, the
     distillation step (3 steps) for crop_shared_bwd and
-    pillar_scatter_max_bwd; crop_shared's row adds `bev_launches`, the
-    BEV trainer's (3 steps), with its `bev_*` times from phase crop."""
+    pillar_scatter_max_bwd, the bf16 step (3 steps) for their bf16 forms;
+    crop_shared's row adds `bev_launches`, the BEV trainer's (3 steps),
+    with its `bev_*` times from phase crop, and `step_*` / `step_bf16_*`,
+    its four calls a distillation step timed in phase train_kernels with
+    the f32 / bf16 step's launches (3 steps)."""
     crop, scatter = ctx.get("crop", {}), ctx.get("scatter", {})
     train = ctx.get("train_kernels", {})
     specs = (
@@ -2334,8 +2539,13 @@ def kernels_line(ctx):
          "take_along_rows.cu", "scripts/exp_gather.py:28"),
         ("crop_shared_bwd", train.get("crop_shared_bwd"), "train",
          "crop_shared_bwd.cu", "lav_tpu/core/warp.py:213"),
+        ("crop_shared_bwd_bf16", train.get("crop_shared_bwd_bf16"),
+         "train_bf16", "crop_shared_bwd.cu", "lav_tpu/core/warp.py:213"),
         ("pillar_scatter_max_bwd", train.get("pillar_scatter_max_bwd"),
          "train", "pillar_scatter_max.cu", "lav_tpu/ops/pillar.py:519"),
+        ("pillar_scatter_max_bwd_bf16",
+         train.get("pillar_scatter_max_bwd_bf16"), "train_bf16",
+         "pillar_scatter_max.cu", "lav_tpu/ops/pillar.py:519"),
     )
     rows = []
     for name, r, path, source, replaces in specs:
@@ -2349,6 +2559,11 @@ def kernels_line(ctx):
         if name == "crop_shared":
             rows[-1]["bev_launches"] = ctx.get(
                 "launches_privileged", {}).get(name, 0)
+            for key, path in (("step", "train"), ("step_bf16", "train_bf16")):
+                rows[-1].update({f"{key}_{k}": v for k, v in train.get(
+                    f"crop_shared_{key}", {}).items()})
+                rows[-1][f"{key}_launches"] = ctx.get(
+                    f"launches_{path}", {}).get(name, 0)
     return {"kernels": rows}
 
 

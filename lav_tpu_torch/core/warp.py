@@ -25,13 +25,15 @@ stride-1 conv1 (`nn/quant.py::conv2d_int8_s2d`): kernel
 `crop_shared_q8_s2d`, the same sums and rounding as `crop_shared_q8`; the
 plain version is `grid_sample_shared_q8` followed by `space_to_depth`.
 
-Training differentiates the f32 crop with respect to its source only, as
-lav_tpu's custom VJP `_grid_sample_shared_bwd` (`core/warp.py:213-229`)
-does: `CropShared` is the autograd Function around `crop_shared`, and its
-backward is kernel `crop_shared_bwd` (csrc/crop_shared_bwd.cu) on the
-card, `grid_sample_shared_bwd` on the CPU: each output pixel's gradient,
-times each tap's f32 hinge weight, is added into the source's gradient at
-the tap; the grid gets none.  The kernel computes it as a gather (each
+Training differentiates the f32 or bf16 crop with respect to its source
+only, as lav_tpu's custom VJP `_grid_sample_shared_bwd`
+(`core/warp.py:213-229`) does: `CropShared` is the autograd Function
+around `crop_shared`, and its backward is kernel `crop_shared_bwd`
+(csrc/crop_shared_bwd.cu) on the card, `grid_sample_shared_bwd` on the
+CPU: each output pixel's gradient, times each tap's hinge weight, is
+added into the source's gradient at the tap; the grid gets none.  In bf16
+the weight and each product are rounded to bf16 as in lav_tpu, and the
+sum is taken in f32 and rounded once.  The kernel computes it as a gather (each
 source cell sums the output pixels that reach it, found through an affine
 fit of each crop's grid, `crop_bwd_map` and `crop_bwd_window`), with no
 atomics and in a fixed order.
@@ -182,9 +184,13 @@ def crop_shared(src, grid, q8_x_scale=None, s2d: bool = False):
 
 
 def grid_sample_shared_bwd(g, grid, H: int, W: int):
-    """Plain version of kernel `crop_shared_bwd`: g (B, K, Ho, Wo, C) f32,
-    grid (B, K, Ho, Wo, 2) f32 -> d_src (B, H, W, C) f32, the four taps of
-    each output pixel added in turn (lav_tpu's `_grid_sample_shared_bwd`)."""
+    """Plain version of kernel `crop_shared_bwd`: g (B, K, Ho, Wo, C) f32
+    or bf16, grid (B, K, Ho, Wo, 2) f32 -> d_src (B, H, W, C) in g's
+    dtype, the four taps of each output pixel added in turn (lav_tpu's
+    `_grid_sample_shared_bwd`).  In bf16 each tap's f32 weight is rounded
+    to bf16 and each product g * weight to bf16, as lav_tpu rounds them;
+    the products are summed in f32 and rounded to bf16 once (lav_tpu sums
+    them in bf16)."""
     B, K, Ho, Wo, C = g.shape
     ix = (grid[..., 0] + 1.0) * 0.5 * (W - 1)
     iy = (grid[..., 1] + 1.0) * 0.5 * (H - 1)
@@ -195,12 +201,16 @@ def grid_sample_shared_bwd(g, grid, H: int, W: int):
     base = ((torch.arange(B, device=g.device)[:, None] * (H * W))
             + (y0.long() * W + x0.long()).reshape(B, -1)).reshape(-1)
     g_flat = g.reshape(-1, C)
-    d_src = g.new_zeros((B * H * W, C))
+    d_src = g.new_zeros((B * H * W, C), dtype=torch.float32)
     for dy in (0, 1):
         for dx in (0, 1):
             w = (wy[dy] * wx[dx]).reshape(-1, 1)
-            d_src.index_add_(0, base + (dy * W + dx), g_flat * w)
-    return d_src.reshape(B, H, W, C)
+            if g.dtype == torch.float32:
+                term = g_flat * w
+            else:
+                term = (g_flat * w.to(g.dtype)).float()
+            d_src.index_add_(0, base + (dy * W + dx), term)
+    return d_src.reshape(B, H, W, C).to(g.dtype)
 
 
 def crop_bwd_map(grid, H: int, W: int):
@@ -264,23 +274,24 @@ def crop_bwd_window(cmap, x, y, Ho: int, Wo: int):
 
 def crop_shared_bwd(g, grid, H: int, W: int):
     """Kernel `crop_shared_bwd` (contract of `grid_sample_shared_bwd`):
-    the f32 source gradient of `crop_shared`, as a gather: each cell of
-    d_src sums, in a fixed order, the output pixels whose taps reach it,
-    and is written once (so d_src is not zeroed first, and two calls give
-    the same bits).  It finds those pixels through an affine fit of each
-    crop's grid (`crop_bwd_map`), as `affine_grid` makes every crop's
-    grid; a grid that is not affine is still right (the fit's largest miss
-    widens the window, up to every output pixel), only slower.  A tap of
-    weight 0 is skipped (it adds g * 0 = 0 for a finite g).  CPU tensors
-    take the plain version."""
+    the source gradient of `crop_shared`, f32 or bf16 g, as a gather: each
+    cell of d_src sums, in a fixed order and in f32, the output pixels
+    whose taps reach it, and is written once (so d_src is not zeroed
+    first, and two calls give the same bits).  It finds those pixels
+    through an affine fit of each crop's grid (`crop_bwd_map`, always in
+    f32), as `affine_grid` makes every crop's grid; a grid that is not
+    affine is still right (the fit's largest miss widens the window, up to
+    every output pixel), only slower.  A tap of weight 0 is skipped (it
+    adds g * 0 = 0 for a finite g).  CPU tensors take the plain version;
+    on the card any other dtype raises."""
     if g.device.type == "cpu":
         return grid_sample_shared_bwd(g, grid, H, W)
     if g.device.type != "cuda" or grid.device != g.device:
         raise ValueError(f"crop_shared_bwd: g on {g.device}, grid on "
                          f"{grid.device}; both must be on one CUDA device")
-    if g.dtype != torch.float32 or grid.dtype != torch.float32:
-        raise TypeError(f"crop_shared_bwd: g {g.dtype}, grid {grid.dtype} "
-                        "(both f32)")
+    if g.dtype not in _DTYPES or grid.dtype != torch.float32:
+        raise TypeError(f"crop_shared_bwd: g {g.dtype} (f32/bf16), grid "
+                        f"{grid.dtype} (f32)")
     if g.ndim != 5 or grid.shape != g.shape[:4] + (2,) or H < 2 or W < 2:
         raise ValueError(f"crop_shared_bwd: g {tuple(g.shape)}, grid "
                          f"{tuple(grid.shape)}, source {H}x{W}")
@@ -288,17 +299,22 @@ def crop_shared_bwd(g, grid, H: int, W: int):
         raise ValueError("crop_shared_bwd: g and grid must be contiguous")
     B, K, Ho, Wo, C = g.shape
     d_src = g.new_empty((B, H, W, C))
-    cmap = g.new_empty((max(B * K, 1), 8))
-    vec = 4 if C % 4 == 0 and g.data_ptr() % 16 == 0 else 1
-    native.launch(native.ENTRIES["crop_shared_bwd_f32"], g.get_device(),
-                  g.data_ptr(), grid.data_ptr(), d_src.data_ptr(),
-                  cmap.data_ptr(), B, H, W, C, K, Ho, Wo, vec)
+    cmap = torch.empty((max(B * K, 1), 8), dtype=torch.float32,
+                       device=g.device)
+    vec = 16 // g.element_size()   # channels in a 16-byte vector
+    if C % vec or g.data_ptr() % 16:
+        vec = 1
+    native.launch(native.ENTRIES[f"crop_shared_bwd_{_DTYPES[g.dtype]}"],
+                  g.get_device(), g.data_ptr(), grid.data_ptr(),
+                  d_src.data_ptr(), cmap.data_ptr(), B, H, W, C, K, Ho, Wo,
+                  vec)
     return d_src
 
 
 class CropShared(torch.autograd.Function):
-    """`crop_shared(src, grid)` with a gradient for the f32 source only
-    (`crop_shared_bwd`); the grid gets none, as in lav_tpu."""
+    """`crop_shared(src, grid)` with a gradient for the f32 or bf16 source
+    (`crop_shared_bwd`, in the gradient's dtype); the grid gets none, as
+    in lav_tpu."""
 
     @staticmethod
     def forward(ctx, src, grid):
@@ -309,8 +325,6 @@ class CropShared(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (grid,) = ctx.saved_tensors
-        if g.dtype != torch.float32:
-            raise TypeError(f"crop_shared: no backward for {g.dtype} yet")
         return crop_shared_bwd(g.contiguous(), grid, *ctx.hw), None
 
 

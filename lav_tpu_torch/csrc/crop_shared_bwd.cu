@@ -1,4 +1,5 @@
-// crop_shared_bwd: the source gradient of the f32 shared crop, as a gather.
+// crop_shared_bwd: the source gradient of the shared crop, f32 or bf16, as a
+// gather.
 //
 // Replaces lav_tpu's custom VJP of the shared crop,
 // lav_tpu/core/warp.py::_grid_sample_shared_bwd (also the backward of the
@@ -19,10 +20,18 @@
 // output row, then column), so the result is the same bit for bit on
 // every run; it is within f32 rounding of lav_tpu's order.
 //
+// bf16 (crop_shared_bwd_bf16: g and d_src bf16, the grid f32): each tap's
+// weight is rounded to bf16 and each product g * weight to bf16, as
+// lav_tpu's VJP rounds them (`w.astype(g.dtype)`, `g * w` in bf16); the
+// terms are summed in f32 and the cell is rounded to bf16 once.  lav_tpu
+// adds the terms in bf16, by four scatter-adds whose order of duplicates
+// XLA leaves open, so the two agree to a tolerance that grows with a
+// cell's terms, not bit for bit (ROADMAP C).
+//
 // Bound: bytes.  g is read once and d_src written once: at the
 // distillation step's shapes (B = 4, 4 + 1 crops of 96x96x384 from a
 // 160x160x384 source) 283 MB of g and 157 MB of d_src, 0.13 ms at
-// 3.35 TB/s.
+// 3.35 TB/s in f32, half that in bf16.
 //
 // Design: the work runs from the source side, one writer per cell, no
 // atomics.  A warp owns a source cell (x, y) of item b and a slice of its
@@ -58,11 +67,13 @@
 //      for 2 x 2, not 4) with each cell's terms in the same order; at the
 //      step's shapes 1 x 1 is the fastest, so the rereads are not what
 //      bounds the kernel (PERF.md, `turns.py train --variants`).
-// C not a multiple of 4, or a g or d_src not 16-byte aligned, takes the
-// same kernel over single floats.  `map` is 8 floats a crop of scratch
-// from the caller.
+// A lane's vectors are 16 bytes (4 f32 or 8 bf16 channels), each channel
+// summed in an f32 register.  C not a multiple of 4 (f32) or 8 (bf16), or
+// a g or d_src not 16-byte aligned, takes the same kernel over single
+// elements.  `map` is 8 floats a crop of scratch from the caller.
 
 #include <climits>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -154,24 +165,74 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-__device__ __forceinline__ float4 axpy(float4 acc, float4 v, float w) {
-  return make_float4(__fadd_rn(acc.x, __fmul_rn(v.x, w)),
-                     __fadd_rn(acc.y, __fmul_rn(v.y, w)),
-                     __fadd_rn(acc.z, __fmul_rn(v.z, w)),
-                     __fadd_rn(acc.w, __fmul_rn(v.w, w)));
+// the element types of g and d_src: `Raw` is what one lane loads (a
+// 16-byte vector or one element), `kN` its channels, each summed in f32
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
-__device__ __forceinline__ float axpy(float acc, float v, float w) {
-  return __fadd_rn(acc, __fmul_rn(v, w));
+__device__ __forceinline__ uint32_t bf16_bits(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
 }
-template <typename T>
-__device__ __forceinline__ T zero();
-template <>
-__device__ __forceinline__ float4 zero<float4>() {
-  return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+struct F32x4 {
+  using Raw = float4;
+  static constexpr int kN = 4;
+  static constexpr bool kBf16 = false;
+  __device__ static void unpack(const Raw& r, float* x) {
+    x[0] = r.x, x[1] = r.y, x[2] = r.z, x[3] = r.w;
+  }
+  __device__ static Raw pack(const float* x) {
+    return make_float4(x[0], x[1], x[2], x[3]);
+  }
+};
+struct F32x1 {
+  using Raw = float;
+  static constexpr int kN = 1;
+  static constexpr bool kBf16 = false;
+  __device__ static void unpack(const Raw& r, float* x) { x[0] = r; }
+  __device__ static Raw pack(const float* x) { return x[0]; }
+};
+struct Bf16x8 {  // two bf16 a 32-bit word, the lower address in the low half
+  using Raw = uint4;
+  static constexpr int kN = 8;
+  static constexpr bool kBf16 = true;
+  __device__ static void unpack(const Raw& r, float* x) {
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      x[2 * i] = __uint_as_float(w[i] << 16);
+      x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+  __device__ static Raw pack(const float* x) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      w[i] = bf16_bits(x[2 * i]) | (bf16_bits(x[2 * i + 1]) << 16);
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
+struct Bf16x1 {
+  using Raw = unsigned short;
+  static constexpr int kN = 1;
+  static constexpr bool kBf16 = true;
+  __device__ static void unpack(const Raw& r, float* x) {
+    x[0] = __uint_as_float((uint32_t)r << 16);
+  }
+  __device__ static Raw pack(const float* x) {
+    return (unsigned short)bf16_bits(x[0]);
+  }
+};
+
+// a tap's weight as the sum takes it: f32, or rounded to bf16
+template <typename V>
+__device__ __forceinline__ float tap_term_weight(float w) {
+  return V::kBf16 ? bf16_round(w) : w;
 }
-template <>
-__device__ __forceinline__ float zero<float>() {
-  return 0.0f;
+// acc + g * w, the product rounded to bf16 in the bf16 form
+template <typename V>
+__device__ __forceinline__ float axpy(float acc, float g, float w) {
+  const float p = __fmul_rn(g, w);
+  return __fadd_rn(acc, V::kBf16 ? bf16_round(p) : p);
 }
 
 // the candidate window of cell (x, y) in crop m's map, clamped to the crop
@@ -196,16 +257,20 @@ __device__ __forceinline__ bool window(const float* m, int x, int y, int Ho,
 }
 
 // 2. a warp per (block of CX x CY cells of d_src, slice of 32 * VPL
-// channel vectors); T is float4 (4 channels) or float.  The warp walks the
-// union of its cells' windows: a hit's g row is read once for all the
-// cells it reaches, each cell's terms still in its own window's order.
-template <typename T, int VPL, int CX, int CY>
+// channel vectors); V is the vector type (F32x4, F32x1, Bf16x8, Bf16x1).
+// The warp walks the union of its cells' windows: a hit's g row is read
+// once for all the cells it reaches, each cell's terms still in its own
+// window's order.
+template <typename V, int VPL, int CX, int CY>
 __global__ void __launch_bounds__(kThreads)
-    crop_gather_kernel(const T* __restrict__ g, const float* __restrict__ grid,
-                       const float* __restrict__ map, T* __restrict__ d_src,
-                       int H, int W, int K, int Ho, int Wo, int nvec,
-                       int slices, long long warps) {
-  constexpr int kCells = CX * CY;
+    crop_gather_kernel(const typename V::Raw* __restrict__ g,
+                       const float* __restrict__ grid,
+                       const float* __restrict__ map,
+                       typename V::Raw* __restrict__ d_src, int H, int W,
+                       int K, int Ho, int Wo, int nvec, int slices,
+                       long long warps) {
+  using T = typename V::Raw;
+  constexpr int kCells = CX * CY, kN = V::kN;
   const long long wid =
       (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
   if (wid >= warps) return;
@@ -217,11 +282,13 @@ __global__ void __launch_bounds__(kThreads)
   const long long b = blk / ((long long)bh * bw);
   const long long npix = (long long)Ho * Wo;
   const int v0 = slice * 32 * VPL + lane;  // this lane's first vector
-  T acc[kCells][VPL];
+  float acc[kCells][VPL][kN];
 #pragma unroll
   for (int c = 0; c < kCells; ++c)
 #pragma unroll
-    for (int t = 0; t < VPL; ++t) acc[c][t] = zero<T>();
+    for (int t = 0; t < VPL; ++t)
+#pragma unroll
+      for (int e = 0; e < kN; ++e) acc[c][t][e] = 0.0f;
   for (int k = 0; k < K; ++k) {
     const long long crop = b * K + k;
     const float* m = map + crop * kMap;
@@ -253,7 +320,8 @@ __global__ void __launch_bounds__(kThreads)
         position(gr + 2 * (long long)pix, H, W, ix, iy);
 #pragma unroll
         for (int c = 0; c < kCells; ++c) {
-          w[c] = tap_weight(ix, iy, x0 + c % CX, y0 + c / CX, H, W);
+          w[c] = tap_term_weight<V>(
+              tap_weight(ix, iy, x0 + c % CX, y0 + c / CX, H, W));
           any |= w[c] != 0.0f;
         }
       }
@@ -282,8 +350,19 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
           for (int t = 0; t < VPL; ++t) {
             if (v0 + 32 * t < nvec) {
-              if (w1c != 0.0f) acc[c][t] = axpy(acc[c][t], a1[t], w1c);
-              if (two && w2c != 0.0f) acc[c][t] = axpy(acc[c][t], a2[t], w2c);
+              float x[kN];
+              if (w1c != 0.0f) {
+                V::unpack(a1[t], x);
+#pragma unroll
+                for (int e = 0; e < kN; ++e)
+                  acc[c][t][e] = axpy<V>(acc[c][t][e], x[e], w1c);
+              }
+              if (two && w2c != 0.0f) {
+                V::unpack(a2[t], x);
+#pragma unroll
+                for (int e = 0; e < kN; ++e)
+                  acc[c][t][e] = axpy<V>(acc[c][t][e], x[e], w2c);
+              }
             }
           }
         }
@@ -297,50 +376,50 @@ __global__ void __launch_bounds__(kThreads)
     T* out = d_src + ((b * H + y) * W + x) * nvec;
 #pragma unroll
     for (int t = 0; t < VPL; ++t)
-      if (v0 + 32 * t < nvec) __stcs(out + v0 + 32 * t, acc[c][t]);
+      if (v0 + 32 * t < nvec) __stcs(out + v0 + 32 * t, V::pack(acc[c][t]));
   }
 }
 
-template <typename T, int VPL>
+template <typename V, int VPL>
 void launch_gather(const void* g, const void* grid, const float* map,
                    void* d_src, int B, int H, int W, int K, int Ho, int Wo,
                    int nvec, cudaStream_t st) {
+  using T = typename V::Raw;
   const int slices = (nvec + 32 * VPL - 1) / (32 * VPL);
   const long long warps = (long long)B * ((H + kCellsY - 1) / kCellsY) *
                           ((W + kCellsX - 1) / kCellsX) * slices;
   const long long blocks = (warps * 32 + kThreads - 1) / kThreads;
-  crop_gather_kernel<T, VPL, kCellsX, kCellsY>
+  crop_gather_kernel<V, VPL, kCellsX, kCellsY>
       <<<(unsigned)blocks, kThreads, 0, st>>>(
           static_cast<const T*>(g), static_cast<const float*>(grid), map,
           static_cast<T*>(d_src), H, W, K, Ho, Wo, nvec, slices, warps);
 }
 
 // vectors a lane: the fewest that cover nvec in one slice, at most 4
-template <typename T>
+template <typename V>
 void gather(const void* g, const void* grid, const float* map, void* d_src,
             int B, int H, int W, int K, int Ho, int Wo, int nvec,
             cudaStream_t st) {
   const int vpl = nvec <= 32 ? 1 : nvec <= 64 ? 2 : nvec <= 96 ? 3 : 4;
   if (vpl == 1)
-    launch_gather<T, 1>(g, grid, map, d_src, B, H, W, K, Ho, Wo, nvec, st);
+    launch_gather<V, 1>(g, grid, map, d_src, B, H, W, K, Ho, Wo, nvec, st);
   else if (vpl == 2)
-    launch_gather<T, 2>(g, grid, map, d_src, B, H, W, K, Ho, Wo, nvec, st);
+    launch_gather<V, 2>(g, grid, map, d_src, B, H, W, K, Ho, Wo, nvec, st);
   else if (vpl == 3)
-    launch_gather<T, 3>(g, grid, map, d_src, B, H, W, K, Ho, Wo, nvec, st);
+    launch_gather<V, 3>(g, grid, map, d_src, B, H, W, K, Ho, Wo, nvec, st);
   else
-    launch_gather<T, 4>(g, grid, map, d_src, B, H, W, K, Ho, Wo, nvec, st);
+    launch_gather<V, 4>(g, grid, map, d_src, B, H, W, K, Ho, Wo, nvec, st);
 }
 
-}  // namespace
-
-// map: 8 floats a crop (B * K) of scratch
-extern "C" int crop_shared_bwd_f32(const void* g, const void* grid,
-                                   void* d_src, void* map, int B, int H,
-                                   int W, int C, int K, int Ho, int Wo,
-                                   int vec, void* stream) {
+// both passes; V is the 16-byte vector of the element type, S its single
+// element, taken when `vec` is 1
+template <typename V, typename S>
+int crop_bwd(const void* g, const void* grid, void* d_src, void* map, int B,
+             int H, int W, int C, int K, int Ho, int Wo, int vec,
+             void* stream) {
   if (B == 0 || C == 0) return 0;
   if (H < 2 || W < 2 || B < 0 || K < 0 || Ho < 0 || Wo < 0 ||
-      (vec == 4 && C % 4))
+      (vec != 1 && (vec != V::kN || C % V::kN)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* m = static_cast<float*>(map);
@@ -349,9 +428,29 @@ extern "C" int crop_shared_bwd_f32(const void* g, const void* grid,
   if (crops > 0)
     crop_map_kernel<<<B * crops, kThreads, 0, st>>>(
         static_cast<const float*>(grid), m, H, W, Ho, Wo);
-  if (vec == 4)
-    gather<float4>(g, grid, m, d_src, B, H, W, crops, Ho, Wo, C / 4, st);
+  if (vec == V::kN)
+    gather<V>(g, grid, m, d_src, B, H, W, crops, Ho, Wo, C / V::kN, st);
   else
-    gather<float>(g, grid, m, d_src, B, H, W, crops, Ho, Wo, C, st);
+    gather<S>(g, grid, m, d_src, B, H, W, crops, Ho, Wo, C, st);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// map: 8 floats a crop (B * K) of scratch; vec: 4 (16-byte vectors) or 1
+extern "C" int crop_shared_bwd_f32(const void* g, const void* grid,
+                                   void* d_src, void* map, int B, int H,
+                                   int W, int C, int K, int Ho, int Wo,
+                                   int vec, void* stream) {
+  return crop_bwd<F32x4, F32x1>(g, grid, d_src, map, B, H, W, C, K, Ho, Wo,
+                                vec, stream);
+}
+
+// g and d_src bf16, the grid f32; vec: 8 (16-byte vectors) or 1
+extern "C" int crop_shared_bwd_bf16(const void* g, const void* grid,
+                                    void* d_src, void* map, int B, int H,
+                                    int W, int C, int K, int Ho, int Wo,
+                                    int vec, void* stream) {
+  return crop_bwd<Bf16x8, Bf16x1>(g, grid, d_src, map, B, H, W, C, K, Ho,
+                                  Wo, vec, stream);
 }

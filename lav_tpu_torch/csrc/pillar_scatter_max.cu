@@ -68,8 +68,8 @@
 // The counts, offsets, ranks, indices and partials live in one scratch
 // buffer from the caller (PyTorch's caching allocator; no cudaMalloc here),
 // laid out by `Layout`; `scratch_bytes` must cover it.  Training keeps the
-// scratch of pillar_scatter_max_f32 for its backward, which reads the
-// sort (pillar_scatter_max_bwd_f32 below).  cudaMemsetAsync
+// scratch of pillar_scatter_max_{f32,bf16} for its backward, which reads
+// the sort (pillar_scatter_max_bwd_{f32,bf16} below).  cudaMemsetAsync
 // zeroes the counts, 6.6 MB at the production shapes, where the canvas
 // fill was 210 MB.  About 50 MB of scratch traffic in all, beside 333 MB
 // of payload and canvas.
@@ -79,6 +79,7 @@
 // it needs the canvas filled first (and K2's finalize after).
 
 #include <climits>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <initializer_list>
 #include <stdint.h>
@@ -617,36 +618,44 @@ extern "C" int pillar_scatter_max_bf16(const void* feat, const void* pid,
 // Replaces XLA's VJP of lav_tpu's training canvas,
 // lav_tpu/ops/pillar.py:516-522: where(keep, feat, -1e30) -> .at[pid].max
 // over a -1e30 canvas -> where(canvas > -1e30, canvas, 0), whose forward
-// is pillar_scatter_max_f32's contract (no Pallas kernel; JAX's
+// is pillar_scatter_max_{f32,bf16}'s contract (no Pallas kernel; JAX's
 // _scatter_extremal_jvp).  Contract: g (S, C) the canvas' gradient, feat
-// (N, C) and pid (N,) the forward's inputs, canvas (S, C) its output;
-// d_feat (N, C):
+// (N, C) and pid (N,) the forward's inputs, canvas (S, C) its output, all
+// of one element type, f32 or bf16; d_feat (N, C) in that type:
 //   d_feat[p, c] = g[s, c] * (1 / n[s, c])  where s = pid[p] is in [0, S)
 //                                           and feat[p, c] == canvas[s, c]
 //                = 0                         otherwise,
 // with n[s, c] the number of points of row s whose channel c equals
-// canvas[s, c]: JAX splits a cell's gradient evenly among the points that
-// tie for its max, and computes 1 / n in f32 before the product, as here
-// (__frcp_rn is the correctly rounded reciprocal).  A row whose max was
-// not above NEG holds 0 in the finalized canvas, and no point of it can
-// equal 0 (one that did would have raised the max to 0), so comparing
-// with the finalized canvas gives 0 there, as JAX's where does.  Dropped
-// ids give 0.  A NaN in the forward is not a case training has to match:
-// a NaN payload equals nothing and gets 0.  Up to the division, the
-// result is exact (no sum is taken), whatever order the points are met in.
+// canvas[s, c], counted as JAX counts them: a scatter_add of ones in the
+// element type, which stops at 2^24 in f32 and at 256 in bf16 (256 + 1
+// rounds back to 256), so n is min(ties, 2^24) or min(ties, 256).  JAX
+// splits a cell's gradient evenly among the points that tie for its max:
+// 1 / n is computed in the element type before the product, as here
+// (__frcp_rn is the correctly rounded f32 reciprocal; in bf16 it and the
+// product are rounded to bf16, each from an f32 value, as XLA computes a
+// bf16 division and product).  Ties are compared in the element type.  A
+// row whose max was not above NEG holds 0 in the finalized canvas, and no
+// point of it can equal 0 (one that did would have raised the max to 0),
+// so comparing with the finalized canvas gives 0 there, as JAX's where
+// does.  Dropped ids give 0.  A NaN in the forward is not a case training
+// has to match: a NaN payload equals nothing and gets 0.  Up to the
+// division, the result is exact (no sum is taken), whatever order the
+// points are met in.
 //
 // Bound: bytes.  feat, the gathered canvas and g rows and d_feat, about
-// 4 x 16.8 MB at the distillation step's shapes (4 x 16384 points, 64
-// channels), 0.02 ms at 3.35 TB/s.
+// 4 x 16.8 MB at the distillation step's f32 shapes (4 x 16384 points, 64
+// channels), 0.02 ms at 3.35 TB/s; half that in bf16.
 //
 // Design: the ties are counted on the forward's counting sort, in
 // registers; no S x C array, no memset, no atomic.  `scratch` holds the
-// sort as pillar_scatter_max_f32 left it (`sorted` != 0: the caller keeps
-// the forward's scratch for its backward), or is sorted here first by the
-// forward's passes 1-3 (`sorted` == 0; they zero the row counts, S ints).
-// The sort is only read: the chunks' tie counts go to the partials, which
-// the forward no longer needs, so the same scratch serves any number of
-// backward calls.
+// sort as pillar_scatter_max_{f32,bf16} left it (`sorted` != 0: the
+// caller keeps the forward's scratch for its backward), or is sorted here
+// first by the forward's passes 1-3 (`sorted` == 0; they zero the row
+// counts, S ints).  The sort is only read: the chunks' tie counts go to
+// the partials, which the forward no longer needs (a chunk's C counts as
+// ints in f32, as 16-bit counts in bf16, whose partials hold 2 bytes a
+// channel; a chunk has at most 8,192 points), so the same scratch serves
+// any number of backward calls.
 //   1. rows (blocks past the hot ones): a group of threads per point k,
 //      a thread a 16-byte piece of the row as in the forward.  As a point,
 //      k writes its own zeros if its id is dropped; as a position of the
@@ -657,12 +666,12 @@ extern "C" int pillar_scatter_max_bf16(const void* feat, const void* pid,
 //      of d_feat is written once.  The first blocks walk the hot rows'
 //      chunks (the forward's, of `chunk` points, stored in the sort's
 //      meta), kHotInFlight points' loads at a time, and store each chunk's
-//      tie counts, summed over the block, to the partials (C ints a
+//      tie counts, summed over the block, to the partials (C counts a
 //      chunk).  The hot path's registers would be the rows' too: the
 //      kernel is held to 32 (8 blocks an SM), which kept the step's rows
 //      at 0.0301 ms with four loads in flight in the hot chunks (0.0354
 //      without the cap) and took a 5,000-point row from 0.0456 ms (two in
-//      flight) to 0.0403 (PERF.md, `turns.py train --variants`).
+//      flight) to 0.0403 (f32; PERF.md, `turns.py train --variants`).
 //   2. hot (the first blocks again): a chunk sums the counts of its row's
 //      chunks and writes its points' d_feat.
 
@@ -672,55 +681,95 @@ namespace {
 // its points are few)
 constexpr int kHotInFlight = 4;
 
+// what the backward adds to an element type: its tie count's ceiling and
+// storage in the partials, and a cell's share g * (1 / n)
+template <typename T>
+struct Grad;
+template <>
+struct Grad<float> {
+  using Count = int;
+  static constexpr int kMaxCount = 1 << 24;
+  __device__ static float share(float g, int n) {
+    return __fmul_rn(g, __frcp_rn((float)min(n, kMaxCount)));
+  }
+  __device__ static float round(float x) { return x; }
+};
+template <>
+struct Grad<Bf16> {
+  using Count = unsigned short;
+  static constexpr int kMaxCount = 256;
+  __device__ static float round(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  }
+  __device__ static float share(float g, int n) {
+    return round(__fmul_rn(g, round(__frcp_rn((float)min(n, kMaxCount)))));
+  }
+};
+
+template <typename T>
 struct BwdArgs {
-  const float* g;
-  const float* feat;
+  const uint8_t* g;
+  const uint8_t* feat;
   const int32_t* pid;
-  const float* canvas;
-  float* out;
-  int* chunk_counts;  // C ints a hot chunk (the scratch's partials)
+  const uint8_t* canvas;
+  uint8_t* out;
+  typename Grad<T>::Count* chunk_counts;  // C a hot chunk (the partials)
   Offsets off;
   const int* idx;
   const unsigned long long* meta;
   const int* hot_rows;
   const int* hot_start;
-  int n, rows, C, pieces, hot_blocks;
+  int n, rows, C, row_bytes, pieces, hot_blocks;
 };
 
-template <int W>
-struct Vf {
-  float v[W];
+// a piece's lanes (W words of Elem<T>::kLanes each), widened to f32
+template <typename T, int W>
+struct Lanes {
+  static constexpr int kN = W * Elem<T>::kLanes;
+  float v[kN];
 };
 
-// reused (feat, the second walk) or read once
-template <int W>
-__device__ __forceinline__ Vf<W> ldf(const float* p) {
-  Vf<W> r;
+// piece j of row r of a (rows, row_bytes) array, through the read-only
+// path (feat is read twice, by the count and by the write)
+template <typename T, int W>
+__device__ __forceinline__ Lanes<T, W> ldl(const BwdArgs<T>& a,
+                                           const uint8_t* base, long long r,
+                                           int j) {
+  const uint8_t* p = base + r * a.row_bytes + j * 4 * W;
+  Piece<W> q;
   if constexpr (W == 4) {
-    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-    r.v[0] = t.x, r.v[1] = t.y, r.v[2] = t.z, r.v[3] = t.w;
+    const uint4 t = __ldg(reinterpret_cast<const uint4*>(p));
+    q.w[0] = t.x, q.w[1] = t.y, q.w[2] = t.z, q.w[3] = t.w;
   } else if constexpr (W == 2) {
-    const float2 t = __ldg(reinterpret_cast<const float2*>(p));
-    r.v[0] = t.x, r.v[1] = t.y;
+    const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
+    q.w[0] = t.x, q.w[1] = t.y;
   } else {
-    r.v[0] = __ldg(p);
+    q.w[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
   }
-  return r;
+  Lanes<T, W> x;
+#pragma unroll
+  for (int w = 0; w < W; ++w)
+#pragma unroll
+    for (int l = 0; l < Elem<T>::kLanes; ++l)
+      x.v[w * Elem<T>::kLanes + l] = Elem<T>::lane(q.w[w], l);
+  return x;
 }
 
-template <int W>
-__device__ __forceinline__ void stf(float* p, const Vf<W>& r) {
-  if constexpr (W == 4)
-    __stcs(reinterpret_cast<float4*>(p),
-           make_float4(r.v[0], r.v[1], r.v[2], r.v[3]));
-  else if constexpr (W == 2)
-    __stcs(reinterpret_cast<float2*>(p), make_float2(r.v[0], r.v[1]));
-  else
-    __stcs(p, r.v[0]);
+// d_feat's piece j of point p; each lane holds a value of the element
+// type, so packing it loses nothing
+template <typename T, int W>
+__device__ __forceinline__ void stl(const BwdArgs<T>& a, long long p, int j,
+                                    const Lanes<T, W>& x) {
+  Piece<W> q;
+#pragma unroll
+  for (int w = 0; w < W; ++w) q.w[w] = Elem<T>::pack(x.v + w * Elem<T>::kLanes);
+  store<W, false>(a.out + p * a.row_bytes + j * 4 * W, q);
 }
 
 // the hot row of chunk c: the last h with hot_start[h] <= c
-__device__ __forceinline__ int hot_row_of(const BwdArgs& a, int n_hot, int c) {
+template <typename T>
+__device__ __forceinline__ int hot_row_of(const BwdArgs<T>& a, int n_hot,
+                                          int c) {
   int lo = 0, hi = n_hot - 1;
   while (lo < hi) {
     const int mid = (lo + hi + 1) >> 1;
@@ -733,72 +782,77 @@ __device__ __forceinline__ int hot_row_of(const BwdArgs& a, int n_hot, int c) {
 // d_feat of piece j of the points idx[k], idx[k + step], ... below end,
 // whose row's max piece is m, gradient piece gv, tie counts cnt; F points'
 // loads at a time
-template <int W, int F>
-__device__ __forceinline__ void write_shares(const BwdArgs& a, int k, int end,
-                                             int step, int j, const Vf<W>& m,
-                                             const Vf<W>& gv, const int* cnt) {
-  float share[W];
+template <typename T, int W, int F>
+__device__ __forceinline__ void write_shares(const BwdArgs<T>& a, int k,
+                                             int end, int step, int j,
+                                             const Lanes<T, W>& m,
+                                             const Lanes<T, W>& gv,
+                                             const int* cnt) {
+  constexpr int kN = Lanes<T, W>::kN;
+  float share[kN];
 #pragma unroll
-  for (int l = 0; l < W; ++l)
-    share[l] = cnt[l] ? __fmul_rn(gv.v[l], __frcp_rn((float)cnt[l])) : 0.0f;
+  for (int l = 0; l < kN; ++l)
+    share[l] = cnt[l] ? Grad<T>::share(gv.v[l], cnt[l]) : 0.0f;
   for (; k < end; k += F * step) {
     long long p[F];
-    Vf<W> f[F];
+    Lanes<T, W> f[F];
 #pragma unroll
     for (int i = 0; i < F; ++i)
       p[i] = k + i * step < end ? __ldg(a.idx + k + i * step) : -1;
 #pragma unroll
     for (int i = 0; i < F; ++i)
-      if (p[i] >= 0) f[i] = ldf<W>(a.feat + p[i] * a.C + j * W);
+      if (p[i] >= 0) f[i] = ldl<T, W>(a, a.feat, p[i], j);
 #pragma unroll
     for (int i = 0; i < F; ++i) {
       if (p[i] < 0) continue;
-      Vf<W> r;
+      Lanes<T, W> r;
 #pragma unroll
-      for (int l = 0; l < W; ++l)
+      for (int l = 0; l < kN; ++l)
         r.v[l] = f[i].v[l] == m.v[l] ? share[l] : 0.0f;
-      stf<W>(a.out + p[i] * a.C + j * W, r);
+      stl<T, W>(a, p[i], j, r);
     }
   }
 }
 
 // the ties of piece j among the points idx[k], idx[k + step], ... below
 // end, added to cnt; F points' loads at a time
-template <int W, int F>
-__device__ __forceinline__ void count_ties(const BwdArgs& a, int k, int end,
-                                           int step, int j, const Vf<W>& m,
-                                           int* cnt) {
+template <typename T, int W, int F>
+__device__ __forceinline__ void count_ties(const BwdArgs<T>& a, int k,
+                                           int end, int step, int j,
+                                           const Lanes<T, W>& m, int* cnt) {
   for (; k < end; k += F * step) {
     long long p[F];
-    Vf<W> f[F];
+    Lanes<T, W> f[F];
 #pragma unroll
     for (int i = 0; i < F; ++i)
       p[i] = k + i * step < end ? __ldg(a.idx + k + i * step) : -1;
 #pragma unroll
     for (int i = 0; i < F; ++i)
-      if (p[i] >= 0) f[i] = ldf<W>(a.feat + p[i] * a.C + j * W);
+      if (p[i] >= 0) f[i] = ldl<T, W>(a, a.feat, p[i], j);
 #pragma unroll
     for (int i = 0; i < F; ++i)
       if (p[i] >= 0)
 #pragma unroll
-        for (int l = 0; l < W; ++l) cnt[l] += f[i].v[l] == m.v[l];
+        for (int l = 0; l < Lanes<T, W>::kN; ++l)
+          cnt[l] += f[i].v[l] == m.v[l];
   }
 }
 
 // 1. blocks [0, hot_blocks): the hot chunks' tie counts; the others a
 // point (and a sorted position) per threadIdx.y
-template <int W>
-__global__ void __launch_bounds__(kThreads, 8) max_bwd_rows(BwdArgs a) {
+template <typename T, int W>
+__global__ void __launch_bounds__(kThreads, 8) max_bwd_rows(BwdArgs<T> a) {
+  constexpr int kN = Lanes<T, W>::kN;
   if ((int)blockIdx.x >= a.hot_blocks) {
     const int k = ((int)blockIdx.x - a.hot_blocks) * blockDim.y + threadIdx.y;
     if (k >= a.n) return;
     const int sp = __ldg(a.pid + k);
     if (sp < 0 || sp >= a.rows) {  // a dropped point: zeros
-      Vf<W> z;
+      Lanes<T, W> z;
 #pragma unroll
-      for (int l = 0; l < W; ++l) z.v[l] = 0.0f;
+      for (int l = 0; l < kN; ++l) z.v[l] = 0.0f;
       for (int j = threadIdx.x; j < a.pieces; j += blockDim.x)
-        stf<W>(a.out + (long long)k * a.C + j * W, z);
+        stl<T, W>(a, k, j, z);
     }
     if (a.rows == 0 || k >= a.off(a.rows)) return;
     const int s = __ldg(a.pid + __ldg(a.idx + k));
@@ -807,15 +861,15 @@ __global__ void __launch_bounds__(kThreads, 8) max_bwd_rows(BwdArgs a) {
     const int end = a.off(s + 1);
     if (end - start > kHot) return;  // a hot row: the hot blocks walk it
     for (int j = threadIdx.x; j < a.pieces; j += blockDim.x) {
-      const Vf<W> m = ldf<W>(a.canvas + (long long)s * a.C + j * W);
-      const Vf<W> gv = ldf<W>(a.g + (long long)s * a.C + j * W);
-      int cnt[W] = {};
-      count_ties<W, 1>(a, start, end, 1, j, m, cnt);
-      write_shares<W, 1>(a, start, end, 1, j, m, gv, cnt);
+      const Lanes<T, W> m = ldl<T, W>(a, a.canvas, s, j);
+      const Lanes<T, W> gv = ldl<T, W>(a, a.g, s, j);
+      int cnt[kN] = {};
+      count_ties<T, W, 1>(a, start, end, 1, j, m, cnt);
+      write_shares<T, W, 1>(a, start, end, 1, j, m, gv, cnt);
     }
     return;
   }
-  __shared__ int red[kThreads * W];
+  __shared__ int red[kThreads * kN];
   const unsigned long long mt = *a.meta;
   const int n_hot = (int)(mt & 0xffffffffu), chunks = (int)(mt >> 32);
   const int chunk = reinterpret_cast<const int*>(a.meta + 1)[0];
@@ -828,22 +882,23 @@ __global__ void __launch_bounds__(kThreads, 8) max_bwd_rows(BwdArgs a) {
     const int k1 = min(end, k0 + chunk);
     for (int j0 = 0; j0 < a.pieces; j0 += blockDim.x) {
       const int j = j0 + threadIdx.x;
-      int cnt[W] = {};
+      int cnt[kN] = {};
       if (j < a.pieces)
-        count_ties<W, kHotInFlight>(
-            a, k0 + (int)threadIdx.y, k1, blockDim.y, j,
-            ldf<W>(a.canvas + (long long)s * a.C + j * W), cnt);
+        count_ties<T, W, kHotInFlight>(a, k0 + (int)threadIdx.y, k1,
+                                       blockDim.y, j,
+                                       ldl<T, W>(a, a.canvas, s, j), cnt);
 #pragma unroll
-      for (int l = 0; l < W; ++l) red[t * W + l] = cnt[l];
+      for (int l = 0; l < kN; ++l) red[t * kN + l] = cnt[l];
       __syncthreads();
       if (threadIdx.y == 0 && j < a.pieces) {
         for (int y = 1; y < (int)blockDim.y; ++y)
 #pragma unroll
-          for (int l = 0; l < W; ++l)
-            cnt[l] += red[(y * blockDim.x + threadIdx.x) * W + l];
+          for (int l = 0; l < kN; ++l)
+            cnt[l] += red[(y * blockDim.x + threadIdx.x) * kN + l];
 #pragma unroll
-        for (int l = 0; l < W; ++l)
-          __stcg(a.chunk_counts + (long long)c * a.C + j * W + l, cnt[l]);
+        for (int l = 0; l < kN; ++l)
+          __stcg(a.chunk_counts + (long long)c * a.C + j * kN + l,
+                 (typename Grad<T>::Count)cnt[l]);
       }
       __syncthreads();
     }
@@ -851,9 +906,10 @@ __global__ void __launch_bounds__(kThreads, 8) max_bwd_rows(BwdArgs a) {
 }
 
 // 2. the hot chunks' d_feat, from their rows' summed chunk counts
-template <int W>
-__global__ void __launch_bounds__(kThreads) max_bwd_hot(BwdArgs a) {
-  __shared__ int tot[kThreads * W];
+template <typename T, int W>
+__global__ void __launch_bounds__(kThreads) max_bwd_hot(BwdArgs<T> a) {
+  constexpr int kN = Lanes<T, W>::kN;
+  __shared__ int tot[kThreads * kN];
   const unsigned long long mt = *a.meta;
   const int n_hot = (int)(mt & 0xffffffffu), chunks = (int)(mt >> 32);
   const int chunk = reinterpret_cast<const int*>(a.meta + 1)[0];
@@ -867,54 +923,47 @@ __global__ void __launch_bounds__(kThreads) max_bwd_hot(BwdArgs a) {
     for (int j0 = 0; j0 < a.pieces; j0 += blockDim.x) {
       const int j = j0 + threadIdx.x;
       if (threadIdx.y == 0 && j < a.pieces) {
-        int cnt[W] = {};
+        int cnt[kN] = {};
         for (int q = first; q < first + n_chunks; ++q)
 #pragma unroll
-          for (int l = 0; l < W; ++l)
-            cnt[l] += __ldcg(a.chunk_counts + (long long)q * a.C + j * W + l);
+          for (int l = 0; l < kN; ++l)
+            cnt[l] += __ldcg(a.chunk_counts + (long long)q * a.C + j * kN + l);
 #pragma unroll
-        for (int l = 0; l < W; ++l) tot[threadIdx.x * W + l] = cnt[l];
+        for (int l = 0; l < kN; ++l) tot[threadIdx.x * kN + l] = cnt[l];
       }
       __syncthreads();
       if (j < a.pieces) {
-        int cnt[W];
+        int cnt[kN];
 #pragma unroll
-        for (int l = 0; l < W; ++l) cnt[l] = tot[threadIdx.x * W + l];
-        write_shares<W, kHotInFlight>(
+        for (int l = 0; l < kN; ++l) cnt[l] = tot[threadIdx.x * kN + l];
+        write_shares<T, W, kHotInFlight>(
             a, k0 + (int)threadIdx.y, k1, blockDim.y, j,
-            ldf<W>(a.canvas + (long long)s * a.C + j * W),
-            ldf<W>(a.g + (long long)s * a.C + j * W), cnt);
+            ldl<T, W>(a, a.canvas, s, j), ldl<T, W>(a, a.g, s, j), cnt);
       }
       __syncthreads();
     }
   }
 }
 
-template <int W>
-void launch_bwd(const BwdArgs& a, int blocks_hot, cudaStream_t st) {
+template <typename T, int W>
+void launch_bwd(const BwdArgs<T>& a, int blocks_hot, cudaStream_t st) {
   const dim3 block = rows_block(a.pieces);
   const long long blocks = a.hot_blocks + ((long long)a.n + block.y - 1) /
                                               block.y;
-  max_bwd_rows<W><<<(unsigned)blocks, block, 0, st>>>(a);
-  if (blocks_hot > 0) max_bwd_hot<W><<<blocks_hot, block, 0, st>>>(a);
+  max_bwd_rows<T, W><<<(unsigned)blocks, block, 0, st>>>(a);
+  if (blocks_hot > 0) max_bwd_hot<T, W><<<blocks_hot, block, 0, st>>>(a);
 }
 
-}  // namespace
-
-// scratch: the canvas max's (canvas_scratch_bytes of n_points, C, segments,
-// 4 bytes); sorted: it holds pillar_scatter_max_f32's sort of these ids
-extern "C" int pillar_scatter_max_bwd_f32(const void* g, const void* feat,
-                                          const void* pid, const void* canvas,
-                                          void* out, long long n_points,
-                                          int C, long long segments,
-                                          void* scratch,
-                                          long long scratch_bytes, int sorted,
-                                          void* stream) {
+template <typename T>
+int canvas_max_bwd(const void* g, const void* feat, const void* pid,
+                   const void* canvas, void* out, long long n_points, int C,
+                   long long segments, void* scratch, long long scratch_bytes,
+                   int sorted, void* stream) {
+  const long long row_bytes = (long long)C * Elem<T>::kBytes;
   if (n_points < 0 || C < 0 || segments < 0 || n_points > INT_MAX ||
-      segments > INT_MAX - kTile || (long long)C * 4 > INT_MAX)
+      segments > INT_MAX - kTile || row_bytes > INT_MAX || row_bytes % 4)
     return (int)cudaErrorInvalidValue;
   if (n_points == 0 || C == 0) return 0;
-  const long long row_bytes = (long long)C * 4;
   const Layout L(n_points, segments, row_bytes);
   if (scratch_bytes < 0 || (size_t)scratch_bytes < L.total)
     return (int)cudaErrorInvalidValue;
@@ -933,25 +982,59 @@ extern "C" int pillar_scatter_max_bwd_f32(const void* g, const void* feat,
   const int hot = rows > 0 ? (L.max_chunks < kHotBlocks ? L.max_chunks
                                                         : kHotBlocks)
                            : 0;
-  const BwdArgs a{static_cast<const float*>(g),
-                  static_cast<const float*>(feat),
-                  static_cast<const int32_t*>(pid),
-                  static_cast<const float*>(canvas),
-                  static_cast<float*>(out),
-                  reinterpret_cast<int*>(s + L.partials),
-                  Offsets{reinterpret_cast<const int*>(s + L.cnt),
-                          reinterpret_cast<const int*>(s + L.tile_sum)},
-                  reinterpret_cast<const int*>(s + L.idx),
-                  reinterpret_cast<const unsigned long long*>(s + L.meta),
-                  reinterpret_cast<const int*>(s + L.hot_rows),
-                  reinterpret_cast<const int*>(s + L.hot_start),
-                  n,
-                  rows,
-                  C,
-                  pieces,
-                  hot};
-  if (W == 4) launch_bwd<4>(a, hot, st);
-  else if (W == 2) launch_bwd<2>(a, hot, st);
-  else launch_bwd<1>(a, hot, st);
+  const BwdArgs<T> a{
+      static_cast<const uint8_t*>(g),
+      static_cast<const uint8_t*>(feat),
+      static_cast<const int32_t*>(pid),
+      static_cast<const uint8_t*>(canvas),
+      static_cast<uint8_t*>(out),
+      reinterpret_cast<typename Grad<T>::Count*>(s + L.partials),
+      Offsets{reinterpret_cast<const int*>(s + L.cnt),
+              reinterpret_cast<const int*>(s + L.tile_sum)},
+      reinterpret_cast<const int*>(s + L.idx),
+      reinterpret_cast<const unsigned long long*>(s + L.meta),
+      reinterpret_cast<const int*>(s + L.hot_rows),
+      reinterpret_cast<const int*>(s + L.hot_start),
+      n,
+      rows,
+      C,
+      (int)row_bytes,
+      pieces,
+      hot};
+  if (W == 4) launch_bwd<T, 4>(a, hot, st);
+  else if (W == 2) launch_bwd<T, 2>(a, hot, st);
+  else launch_bwd<T, 1>(a, hot, st);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// g, feat, pid, canvas, d_feat, n_points, C, segments, scratch,
+// scratch_bytes, sorted, stream.  scratch: the canvas max's
+// (canvas_scratch_bytes of n_points, C, segments and the element's
+// bytes); sorted: it holds pillar_scatter_max_{f32,bf16}'s sort of these
+// ids
+
+extern "C" int pillar_scatter_max_bwd_f32(const void* g, const void* feat,
+                                          const void* pid, const void* canvas,
+                                          void* out, long long n_points,
+                                          int C, long long segments,
+                                          void* scratch,
+                                          long long scratch_bytes, int sorted,
+                                          void* stream) {
+  return canvas_max_bwd<float>(g, feat, pid, canvas, out, n_points, C,
+                               segments, scratch, scratch_bytes, sorted,
+                               stream);
+}
+
+extern "C" int pillar_scatter_max_bwd_bf16(const void* g, const void* feat,
+                                           const void* pid,
+                                           const void* canvas, void* out,
+                                           long long n_points, int C,
+                                           long long segments, void* scratch,
+                                           long long scratch_bytes,
+                                           int sorted, void* stream) {
+  return canvas_max_bwd<Bf16>(g, feat, pid, canvas, out, n_points, C,
+                              segments, scratch, scratch_bytes, sorted,
+                              stream);
 }

@@ -28,7 +28,10 @@ teacher=True).bev_planner`) stays in eval mode with no gradient; the
 student's crop ResNet runs in train mode, called on the other cars'
 crops, then on the ego's: its BN update is the ego call's (lav_tpu keeps
 `{"lidar_conv_emb": st_ego}`), which `BatchNorm.new_stats` gives, since
-the later call overwrites it.
+the later call overwrites it.  Training in f32 at B >= 32, the other
+cars' crops and their embedding run under lav_tpu's scoped checkpoint
+(`utils/tree.py::checkpoint`, whose recompute leaves the ego's update in
+place).
 
 `bev_planner_forward` is the BEV planner's own train forward (lav_tpu
 `planner.py:207-289`, the stage-1 BEV step of `train/privileged.py`): up
@@ -52,6 +55,7 @@ from lav_tpu_torch.core.warp import crop_feature, crop_feature_shared
 from lav_tpu_torch.nn import layers as L
 from lav_tpu_torch.nn import quant
 from lav_tpu_torch.nn.resnet import resnet18, resnet_apply
+from lav_tpu_torch.utils.tree import checkpoint
 
 EMBD = 512  # resnet18 layer4 channels / plan GRU hidden size
 
@@ -319,8 +323,19 @@ def uniplanner_forward(core: UniPlanner, cfg: LAVConfig, features, bev,
 
     with torch.no_grad():
         crop_other_bev = multi_crop(bev, ppm, crop * 2)
-    other_embd = conv_emb(core.lidar_conv_emb,
-                          multi_crop(features, ppm / 2, crop))
+
+    def student_embed(feats):
+        return conv_emb(core.lidar_conv_emb, multi_crop(feats, ppm / 2, crop))
+
+    # lav_tpu's scoped checkpoint (planner.py:398, :412-419): in f32 from B
+    # = 32 on, the (B * K, crop, crop, Cf) student crops and the crop
+    # ResNet's activations on them are recomputed in the backward pass
+    # instead of kept
+    if train and features.dtype == torch.float32 and B >= 32:
+        other_embd = checkpoint(student_embed, features,
+                                module=core.lidar_conv_emb)
+    else:
+        other_embd = student_embed(features)
     other_cast_locs = cast(core, other_embd, T)
     other_cast_cmds = cast_cmd_pred(core, other_embd)
 

@@ -30,12 +30,13 @@ Train mode (lav_tpu's train=True route, `ops/pillar.py:507-522`): the
 decoration as in the production route and outside the gradient (lav_tpu's
 stop_gradient), the point MLP's BatchNorm on the batch statistics of the
 valid points, and the canvas as `CanvasMax`: forward kernel
-`pillar_scatter_max` in f32 (lav_tpu's where(keep, feat, -1e30) ->
-.at[pid].max over a -1e30 canvas -> where(> -1e30, ., 0), the invalid
-points dropped here instead of masked), backward kernel
-`pillar_scatter_max_bwd` (`pillar_scatter_max_bwd_plain` on the CPU),
-which splits a cell's gradient evenly among the points tying for its max,
-as JAX's scatter-max VJP does.
+`pillar_scatter_max` in the points' dtype, f32 or bf16 (lav_tpu's
+where(keep, feat, -1e30) -> .at[pid].max over a -1e30 canvas ->
+where(> -1e30, ., 0), the invalid points dropped here instead of masked),
+backward kernel `pillar_scatter_max_bwd` (`pillar_scatter_max_bwd_plain`
+on the CPU), which splits a cell's gradient evenly among the points tying
+for its max, as JAX's scatter-max VJP does, with JAX's tie count: a sum
+of ones in the feature dtype, which stops at 256 in bf16.
 
 Kernel `scatter_add` (csrc/pillar_scatter.cu) ports lav_tpu's Pallas
 `scatter_pallas` (ops/pillar_pallas2.py) with op="add"; kernels
@@ -144,19 +145,36 @@ def pillar_scatter_max(feat, pid, num_segments: int, keep_sort: bool = False):
                     canvas=True, keep_sort=keep_sort)
 
 
+def tie_count(n, dtype):
+    """A cell's tie count n (an integer tensor) as JAX's scatter-max VJP
+    counts it: a scatter_add of ones in `dtype`, which stops where adding
+    1 rounds back (256 in bf16, 2^24 in f32) -> n in `dtype`."""
+    return torch.clamp(n, max=int(2 / torch.finfo(dtype).eps)).to(dtype)
+
+
+def _share(g, n, tie):
+    """g * (1 / n) where `tie`, else 0; n the tie counts (int64), the
+    reciprocal and the product in g's dtype (each an f32 value rounded once
+    in bf16)."""
+    n = torch.where(tie, n, torch.ones_like(n))
+    share = g * (1.0 / tie_count(n, g.dtype).float()).to(g.dtype)
+    return torch.where(tie, share, torch.zeros_like(share))
+
+
 def pillar_scatter_max_bwd_plain(g, feat, pid, canvas):
     """Plain version of kernel `pillar_scatter_max_bwd`: g (S, C) the
-    gradient of `pillar_scatter_max(feat, pid, S)`'s output `canvas` ->
-    d_feat (N, C) f32: g[pid[p], c] * (1 / n) where feat[p, c] equals
-    canvas[pid[p], c] and n points of the row tie there, else 0; dropped
-    ids give 0."""
+    gradient of `pillar_scatter_max(feat, pid, S)`'s output `canvas`, all
+    f32 or all bf16 -> d_feat (N, C) in that dtype: g[pid[p], c] * (1 / n)
+    where feat[p, c] equals canvas[pid[p], c] and n points of the row tie
+    there (`tie_count`: at most 256 in bf16), else 0; dropped ids give
+    0."""
     S, C = canvas.shape
     ok = (pid >= 0) & (pid < S)
     s = torch.where(ok, pid.long(), torch.zeros_like(pid.long()))
     tie = ok[:, None] & (feat == canvas[s])
-    n = canvas.new_zeros((S, C)).index_add_(0, s, tie.to(canvas.dtype))[s]
-    share = g[s] * (1.0 / torch.where(tie, n, torch.ones_like(n)))
-    return torch.where(tie, share, torch.zeros_like(share))
+    n = torch.zeros((S, C), dtype=torch.int64, device=canvas.device)
+    n = n.index_add_(0, s, tie.long())[s]
+    return _share(g[s], n, tie)
 
 
 def pillar_scatter_max_bwd_sorted_plain(g, feat, canvas, offsets, idx):
@@ -168,29 +186,35 @@ def pillar_scatter_max_bwd_sorted_plain(g, feat, canvas, offsets, idx):
     rows = torch.repeat_interleave(
         torch.arange(S, device=canvas.device), offsets.diff())
     tie = feat[idx] == canvas[rows]
-    n = canvas.new_zeros((S, C)).index_add_(0, rows, tie.to(canvas.dtype))
-    n = n[rows]
-    share = g[rows] * (1.0 / torch.where(tie, n, torch.ones_like(n)))
+    n = torch.zeros((S, C), dtype=torch.int64, device=canvas.device)
+    n = n.index_add_(0, rows, tie.long())[rows]
     out = feat.new_zeros(feat.shape)
-    out[idx] = torch.where(tie, share, torch.zeros_like(share))
+    out[idx] = _share(g[rows], n, tie)
     return out
+
+
+_BWD_ENTRY = {torch.float32: native.ENTRIES["pillar_scatter_max_bwd_f32"],
+              torch.bfloat16: native.ENTRIES["pillar_scatter_max_bwd_bf16"]}
 
 
 def pillar_scatter_max_bwd(g, feat, pid, canvas, sort=None):
     """Kernel `pillar_scatter_max_bwd` (contract of
-    `pillar_scatter_max_bwd_plain`), f32.  `sort` is the scratch that
+    `pillar_scatter_max_bwd_plain`), f32 or bf16 (C even; g, feat and
+    canvas of one dtype).  `sort` is the scratch that
     `pillar_scatter_max(feat, pid, S, keep_sort=True)` returned beside this
     canvas: the kernel counts the ties on its per-row point lists (and
     writes its partials region, which the forward no longer reads).
     Without it the kernel sorts the points itself first, as the forward
     does.  CPU tensors take the plain version (on the sort, where one is
-    given)."""
+    given); on the card any other dtype raises."""
     dev = feat.get_device()
-    if not (feat.is_cuda and feat.dtype is torch.float32
-            and g.dtype is torch.float32 and canvas.dtype is torch.float32
-            and pid.dtype is torch.int32 and feat.dim() == 2
-            and pid.shape == feat.shape[:1] and g.shape == canvas.shape
-            and canvas.dim() == 2 and canvas.shape[1] == feat.shape[1]
+    entry = _BWD_ENTRY.get(feat.dtype)
+    if not (feat.is_cuda and entry is not None and g.dtype is feat.dtype
+            and canvas.dtype is feat.dtype and pid.dtype is torch.int32
+            and feat.dim() == 2 and pid.shape == feat.shape[:1]
+            and g.shape == canvas.shape and canvas.dim() == 2
+            and canvas.shape[1] == feat.shape[1]
+            and (feat.element_size() == 4 or feat.shape[1] % 2 == 0)
             and all(t.get_device() == dev for t in (g, pid, canvas))
             and all(t.is_contiguous() for t in (g, feat, pid, canvas))):
         if feat.device.type == "cpu":
@@ -198,16 +222,17 @@ def pillar_scatter_max_bwd(g, feat, pid, canvas, sort=None):
                 return pillar_scatter_max_bwd_plain(g, feat, pid, canvas)
             return pillar_scatter_max_bwd_sorted_plain(
                 g, feat, canvas, *read_canvas_sort(
-                    sort, feat.shape[0], feat.shape[1], canvas.shape[0], 4))
+                    sort, feat.shape[0], feat.shape[1], canvas.shape[0],
+                    feat.element_size()))
         raise ValueError(
             f"pillar_scatter_max_bwd: g {g.dtype} {tuple(g.shape)}, feat "
             f"{feat.dtype} {tuple(feat.shape)}, pid {pid.dtype} "
             f"{tuple(pid.shape)}, canvas {canvas.dtype} "
-            f"{tuple(canvas.shape)}: f32 (int32 pid), contiguous, on one "
-            "CUDA device")
+            f"{tuple(canvas.shape)}: one dtype, f32 or bf16 (C even), int32 "
+            "pid, contiguous, on one CUDA device")
     N, C = feat.shape
     S = canvas.shape[0]
-    nbytes = canvas_scratch_bytes(N, C, S, 4)
+    nbytes = canvas_scratch_bytes(N, C, S, feat.element_size())
     if sort is None:
         scratch = torch.empty(nbytes, dtype=torch.uint8, device=feat.device)
     elif (sort.dtype is torch.uint8 and sort.get_device() == dev
@@ -218,17 +243,16 @@ def pillar_scatter_max_bwd(g, feat, pid, canvas, sort=None):
                          f"{tuple(sort.shape)} on {sort.device}: the "
                          f"forward's uint8 scratch of {nbytes} bytes")
     out = torch.empty_like(feat)
-    native.launch(native.ENTRIES["pillar_scatter_max_bwd_f32"], dev,
-                  g.data_ptr(), feat.data_ptr(), pid.data_ptr(),
+    native.launch(entry, dev, g.data_ptr(), feat.data_ptr(), pid.data_ptr(),
                   canvas.data_ptr(), out.data_ptr(), N, C, S,
                   scratch.data_ptr(), scratch.numel(), int(sort is not None))
     return out
 
 
 class CanvasMax(torch.autograd.Function):
-    """`pillar_scatter_max(feat, pid, S)` with its gradient to feat
-    (`pillar_scatter_max_bwd` on the forward's sort, which the Function
-    keeps); pid gets none."""
+    """`pillar_scatter_max(feat, pid, S)`, f32 or bf16, with its gradient
+    to feat (`pillar_scatter_max_bwd` on the forward's sort, which the
+    Function keeps, in feat's dtype); pid gets none."""
 
     @staticmethod
     def forward(ctx, feat, pid, num_segments: int):

@@ -19,11 +19,27 @@ gradient, and the never-evaluated `other` cast bank gets none either, so
 Adam leaves both as they are, as optax does with their zero gradients.
 `grad_norm` is optax's global norm, over every gradient.  The step runs
 where the models and the batch are: `distill_setup` puts them on the card
-unless asked for the CPU.  Left out: lav_tpu's `remat`, its scoped
-student-crop checkpoint, and a compute dtype other than f32.
+unless asked for the CPU.
+
+`compute_dtype` (lav_tpu's `--dtype`): the lidar points and the BEV are
+cast to it, so the lidar model, the canvas max and its backward, the
+student's crops and their backward, the crop ResNets and the teacher's
+BEV crops run in it; the head maps go back to f32 for the losses.  The
+params, Adam's moments and the BN running statistics stay f32 (each layer
+casts its f32 weights to its input's dtype; BN takes its statistics in
+f32).  `remat` (lav_tpu's `--remat`) runs the lidar forward and the
+planner forward each under `utils/tree.py::checkpoint`, which recomputes
+their activations in the backward pass and keeps the forward's BN
+updates.  lav_tpu's policy `dots_with_no_batch_dims_saveable` keeps some
+matmul outputs instead of recomputing them: an XLA memory tactic that
+changes no number, so saving nothing computes the same function.  In f32
+at B >= 32 `uniplanner_forward` also scopes lav_tpu's checkpoint over the
+student crops, with or without `remat`.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -37,7 +53,7 @@ from lav_tpu_torch.models.planner import (
     UniPlanner, draw_noise, uniplanner_forward,
 )
 from lav_tpu_torch.utils.device import resolve_device
-from lav_tpu_torch.utils.tree import merge_bn_state
+from lav_tpu_torch.utils.tree import checkpoint, merge_bn_state
 
 MODES = ("full", "perceive_only", "motion_only")
 
@@ -125,21 +141,35 @@ def make_distill_loss_fn(cfg: LAVConfig, v2: bool = False,
 
 
 def make_distill_forward(cfg: LAVConfig, v2: bool = False,
-                         mode: str = "full"):
+                         mode: str = "full", compute_dtype=None,
+                         remat: bool = False):
     """forward(models, batch, noise) -> (loss, metrics): the lidar model,
     the student with its teacher, and the losses, in the models' current
     mode (lav_tpu `make_distill_forward` with train=True is the models in
-    train mode).  `models` as `distill_models` builds it; noise from
+    train mode), the points and the BEV in `compute_dtype` (default f32),
+    the two forwards recomputed in the backward pass with `remat` (see the
+    module note).  `models` as `distill_models` builds it; noise from
     `planner.draw_noise`."""
     loss_terms = make_distill_loss_fn(cfg, v2=v2, mode=mode)
+    cdt = compute_dtype or torch.float32
 
     def forward(models, batch, noise):
-        feats, hm, size, ori, pred_bev = models["lidar_model"](
-            batch["lidar"], batch["lidar_valid"])[:5]
-        out = uniplanner_forward(
-            models["uniplanner"], cfg, feats, batch["bev"],
-            batch["ego_locs"], batch["locs"], batch["oris"], batch["nxps"],
-            batch["typs"], noise)
+        lidar = models["lidar_model"]
+        planner = functools.partial(uniplanner_forward, models["uniplanner"],
+                                    cfg)
+        lidar_args = (batch["lidar"].to(cdt), batch["lidar_valid"])
+        planner_args = (batch["bev"].to(cdt), batch["ego_locs"],
+                        batch["locs"], batch["oris"], batch["nxps"],
+                        batch["typs"], noise)
+        def run(fn, *args, module):
+            return checkpoint(fn, *args, module=module) if remat \
+                else fn(*args)
+
+        feats, hm, size, ori, pred_bev = run(lidar, *lidar_args,
+                                             module=lidar)[:5]
+        out = run(planner, feats, *planner_args,
+                  module=models["uniplanner"])
+        # the losses in f32
         preds = (hm.float(), size.float(), ori.float(), pred_bev.float())
         return loss_terms(preds, out, batch)
 
@@ -160,13 +190,17 @@ def optimizer_step(models, optimizer, loss, metrics) -> dict:
 
 
 def make_full_train_step(cfg: LAVConfig, v2: bool = False,
-                         mode: str = "full"):
+                         mode: str = "full", compute_dtype=None,
+                         remat: bool = False):
     """step(models, optimizer, batch, gen=None, noise=None) -> metrics:
-    one optimizer step in train mode.  The forward's noise is drawn from
-    the CPU `torch.Generator` `gen` unless `noise` is given.  metrics holds
-    the loss terms and `grad_norm`, as 0-dim tensors on the models'
-    device (nothing waits for the device)."""
-    forward = make_distill_forward(cfg, v2=v2, mode=mode)
+    one optimizer step in train mode, computing in `compute_dtype` (default
+    f32), with `remat` recomputing the forwards in the backward pass
+    (`make_distill_forward`).  The forward's noise is drawn from the CPU
+    `torch.Generator` `gen` unless `noise` is given.  metrics holds the
+    loss terms and `grad_norm`, as 0-dim tensors on the models' device
+    (nothing waits for the device)."""
+    forward = make_distill_forward(cfg, v2=v2, mode=mode,
+                                   compute_dtype=compute_dtype, remat=remat)
 
     def step(models, optimizer, batch, gen=None, noise=None):
         models.train()
@@ -235,17 +269,20 @@ def make_batch(cfg: LAVConfig, batch_size: int, max_points: int,
 
 def distill_setup(batch_size: int = 4, max_points: int = 16384,
                   device=None, seed: int = 0, cfg: LAVConfig = None,
-                  v2: bool = True, mode: str = "full", lr: float = 3e-4):
+                  v2: bool = True, mode: str = "full", lr: float = 3e-4,
+                  compute_dtype=None, remat: bool = False):
     """The v2 distillation step at full width (`v2_config()` unless `cfg`)
     with weights from `seed`, Adam(lr) and a `make_batch` batch, on
-    `device` (default the card; raises without one unless 'cpu').
-    Returns (step, models, optimizer, batch, gen, cfg), gen the CPU
-    generator the step draws its noise from (seeded with seed + 1)."""
+    `device` (default the card; raises without one unless 'cpu'), in
+    `compute_dtype` and with `remat` (`make_full_train_step`).  Returns
+    (step, models, optimizer, batch, gen, cfg), gen the CPU generator the
+    step draws its noise from (seeded with seed + 1)."""
     dev = resolve_device(device)
     cfg = cfg or v2_config()
     models = distill_models(cfg, torch.Generator().manual_seed(seed)).to(dev)
     optimizer = adam(models, lr)
     batch = make_batch(cfg, batch_size, max_points, seed, dev)
-    step = make_full_train_step(cfg, v2=v2, mode=mode)
+    step = make_full_train_step(cfg, v2=v2, mode=mode,
+                                compute_dtype=compute_dtype, remat=remat)
     return (step, models, optimizer, batch,
             torch.Generator().manual_seed(seed + 1), cfg)

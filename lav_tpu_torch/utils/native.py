@@ -22,7 +22,9 @@ launch.
 card; `reset_launches` sets every count to 0.  A source may hold several
 kernels (`pillar_scatter_max.cu` holds the NEG-init and the zero-init
 canvas max), and a kernel's forms are counted apart where a path must show
-which one ran (`crop_shared_q8_s2d`, `pillar_scatter_max_bf16`).
+which one ran (`crop_shared_q8_s2d`, `pillar_scatter_max_bf16`, and the
+bf16 backward kernels `crop_shared_bwd_bf16`,
+`pillar_scatter_max_bwd_bf16`).
 """
 
 from __future__ import annotations
@@ -78,12 +80,16 @@ ENTRIES = {e.symbol: e for e in (
     Entry("pillar_scatter_max", "scatter_max_f32", "scatter_max", _CANVAS),
     Entry("pillar_scatter", "scatter_add_f32", "scatter_add", _SCATTER),
     # g, grid, d_src, map (8 floats a crop), B, H, W, C, K, Ho, Wo, vec
-    Entry("crop_shared_bwd", "crop_shared_bwd_f32", "crop_shared_bwd",
-          (_P,) * 4 + (_I,) * 8),
+    *(Entry("crop_shared_bwd", f"crop_shared_bwd_{dt}", k,
+            (_P,) * 4 + (_I,) * 8)
+      for dt, k in (("f32", "crop_shared_bwd"),
+                    ("bf16", "crop_shared_bwd_bf16"))),
     # g, feat, pid, canvas, d_feat, n_points, C, segments, the canvas max's
     # scratch and its bytes, whether it holds the forward's sort
-    Entry("pillar_scatter_max", "pillar_scatter_max_bwd_f32",
-          "pillar_scatter_max_bwd", (_P,) * 5 + (_LL, _I, _LL, _P, _LL, _I)),
+    *(Entry("pillar_scatter_max", f"pillar_scatter_max_bwd_{dt}", k,
+            (_P,) * 5 + (_LL, _I, _LL, _P, _LL, _I))
+      for dt, k in (("f32", "pillar_scatter_max_bwd"),
+                    ("bf16", "pillar_scatter_max_bwd_bf16"))),
     # x, w, w_scale, x_scale, bias (or NULL), out, plan (int[591])
     *(Entry("conv2d_int8", f"conv2d_int8_{dt}", "conv2d_int8", (_P,) * 7)
       for dt in ("bf16", "f32")),

@@ -7,11 +7,14 @@ step.  Here each train-mode `BatchNorm` keeps its update in `new_stats`;
 `bn_state` reads them and `merge_bn_state` writes them into the running
 statistics.  A module called twice in one step keeps its last call's
 update, each computed from the statistics of before the step.
+`checkpoint` recomputes a part of the forward in the backward pass
+without letting the recompute change those updates.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from lav_tpu_torch.nn.layers import BatchNorm
@@ -34,3 +37,31 @@ def merge_bn_state(module: nn.Module) -> nn.Module:
                 m.var.copy_(m.new_stats[1])
                 m.new_stats = None
     return module
+
+
+def checkpoint(fn, *args, module: nn.Module):
+    """fn(*args) under `torch.utils.checkpoint.checkpoint` (non-reentrant):
+    its activations are not kept but recomputed in the backward pass, as
+    lav_tpu's `jax.checkpoint` does.  The recompute runs fn's train-mode
+    BatchNorms again, after the rest of the forward: the crop ResNet's
+    call on the other cars' crops would overwrite the ego's update, which
+    came later in the forward.  lav_tpu's BN state is an output of its
+    forward, which a recompute does not change; so the updates recorded
+    under `module` before a recompute are put back after it, and every
+    BatchNorm keeps its forward's update."""
+    calls = 0
+
+    def run(*a):
+        nonlocal calls
+        calls += 1
+        if calls == 1:    # the forward
+            return fn(*a)
+        kept = [(m, m.new_stats) for m in module.modules()
+                if isinstance(m, BatchNorm)]
+        try:
+            return fn(*a)
+        finally:
+            for m, stats in kept:
+                m.new_stats = stats
+
+    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)

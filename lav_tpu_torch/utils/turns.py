@@ -511,7 +511,8 @@ def train(parent: Path, variants: bool) -> dict:
 
     # the canvas max's gradient: the step's inputs, then a hot row
     step_args = cs._canvas_bwd_inputs(torch, {"device": "cuda"})
-    hot = cs._canvas_bwd_cases(torch, dev)[-1]
+    hot = [c for c in cs._canvas_bwd_cases(torch, dev)
+           if c[0] == "a hot row of 5000 points"][0]
     for label, (g, feat, pid, cmax, sort) in (("the step's", step_args),
                                               (hot[0], hot[1:])):
         (N, C), S = feat.shape, cmax.shape[0]

@@ -63,6 +63,19 @@ def test_the_backward_entries_are_declared_as_their_sources_define_them():
                                                             I, P]
 
 
+
+def test_the_bf16_backward_entries_are_declared_beside_the_f32_ones():
+    """The bf16 forms of the two backward kernels take the f32 forms'
+    arguments, live in the same sources and are counted apart, so that a
+    bf16 step shows it ran them."""
+    sigs = _c_signatures()
+    for kernel in ("crop_shared_bwd", "pillar_scatter_max_bwd"):
+        f32 = native.ENTRIES[f"{kernel}_f32"]
+        bf16 = native.ENTRIES[f"{kernel}_bf16"]
+        assert bf16.source == f32.source and bf16.argtypes == f32.argtypes
+        assert (f32.kernel, bf16.kernel) == (kernel, f"{kernel}_bf16")
+        assert sigs[f"{kernel}_bf16"] == sigs[f"{kernel}_f32"]
+
 class _StubLib:
     """Stands in for a loaded kernel library: each symbol is a C function
     pointer to a Python callback that reads every argument as a 64-bit

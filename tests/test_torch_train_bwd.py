@@ -315,12 +315,13 @@ def test_canvas_sort_plain_lays_out_the_rows(n, S, C, elem, hot):
         assert 3 in hot_rows.tolist()
 
 
-@pytest.mark.parametrize("case", range(4))
+@pytest.mark.parametrize("case", range(5))
 def test_the_backward_on_the_sort_equals_the_plain_version(case):
     """chip_smoke.py's crafted cases (ties of 2, 3 and 40 equal maxima,
     ties at 0, dropped ids, empty rows, C = 4, 6, 64; a hot row of 5,000
-    points, 300 of them tied, among the step's 4 x 16384) on the CPU, their
-    sort from the forward (`canvas_sort_plain`)."""
+    points, 300 of them tied, among the step's 4 x 16384; hot rows of 255
+    to 1,000 tied points) on the CPU, their sort from the forward
+    (`canvas_sort_plain`)."""
     label, g, feat, pid, canvas, sort = cs._canvas_bwd_cases(
         torch, torch.device("cpu"))[case]
     ref = P.pillar_scatter_max_bwd_plain(g, feat, pid, canvas)
