@@ -20,8 +20,12 @@ Phases, each printing its own line and raising on failure:
           forms also on zoom-out crops (2 source pixels an output pixel,
           45 degrees and others) and on 90x90 crops (partial 16x16
           tiles); host-paced and device-only times and host us per call
-          of the int8 forms; and crop_shared f32 at the BEV trainer's
-          shapes (64 sources of 320x320x9, 5 crops of 192x192 each)
+          of the int8 forms; crop_shared f32 at the BEV trainer's shapes
+          (64 sources of 320x320x9, 5 crops of 192x192 each); and
+          crop_shared's narrow route, f32 and bf16: C = 1, 3 and 9 with
+          the source, and through the C entry the output too, one
+          element off a 16-byte boundary, and C = 5; every plain case
+          timed host-paced and device-only beside F.grid_sample
   pillar  kernel pillar_scatter_max against its plain version at the
           agent's shapes (4 x 49152 points, 64 channels, 4 x 102401
           pillars) with masked points at NEG in the in-range dump slots,
@@ -42,7 +46,15 @@ Phases, each printing its own line and raising on failure:
           both on the ids and payloads the production agent hands them at
           tick 1 and once its ring buffer is full (scatter_max held exact,
           NaN positions equal); host-paced and device-only times and host
-          us per call beside index_add_'s and scatter_reduce_'s
+          us per call beside index_add_'s and scatter_reduce_'s; then
+          kernel scatter_max_bwd (the production eval canvas' gradient)
+          against its plain version, exact with NaN positions equal, on
+          the forward's sort and sorting itself: on the full-ring tick's
+          canvas (bf16, and its payload in f32), on the f32 agent's canvas
+          shapes and on rows of 255-1,000 tied points (at 0, where the
+          zero counts one more, and at 3.0) with NaN in the payload and
+          NaN and inf in g; host-paced and device-only times and host us
+          per call beside autograd through scatter_reduce "amax"
   conv_int8  kernel conv2d_int8 against its plain version at every int8
           conv shape of the production tick (16 egos), and at the variant
           routes' shapes (the s2d conv1 and the three int8 upconvs as
@@ -103,8 +115,10 @@ Phases, each printing its own line and raising on failure:
           against the port on the CPU (the same weights from seed 0, batch
           and noise) in loss, grad_norm and four gradient leaves in f32;
           in loss and grad_norm in bf16 (compute_dtype=bfloat16, lav_tpu's
-          --dtype), and the same four leaves of one bf16 forward and
-          backward with BatchNorm on its running statistics; then,
+          --dtype), and the same four leaves and a lidar backbone leaf of
+          one bf16 forward and backward with BatchNorm on its running
+          statistics (the lidar model's eval route: the point MLP's
+          gradient through kernel scatter_max_bwd, counted); then,
           with 16384 points an item, 3 steps with launch counts and 4
           more timed (p50 over steps 2-7, samples/s, peak memory, one
           profiled step) of: f32 at B = 4 (crop_shared, crop_shared_bwd
@@ -215,10 +229,11 @@ TRAIN_LEAF_L2 = 5e-2        # scatter_add's atomics, amplified by train-mode
 # held in one bf16 forward and backward of the step's loss with BN on its
 # running statistics (models in eval mode): loss rtol, grad_norm rtol,
 # leaf L2, which a zeroed (1.0) or sign-flipped (2.0) leaf fails
-# (measured there: 4.7e-6, 2.4e-6, 2.0e-3-5.1e-2)
+# (measured there: 4.7e-6, 2.4e-6, 2.0e-3-5.1e-2, without the point
+# MLP's leaf, whose eval gradient goes through kernel scatter_max_bwd)
 TRAIN_BF16_TOLS = (1e-2, 5e-2)
 TRAIN_BF16_EVAL_TOLS = (1e-4, 1e-3, 0.15)
-EVAL_LEAF = ("lidar_model.backbone.conv1_0.conv.w",)   # for the point MLP's
+EVAL_LEAF = ("lidar_model.backbone.conv1_0.conv.w",)
 PRIV_TOLS = {"bev": (TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_LEAF_L2),
              "seg": (1e-4, 2e-2, 1e-1),
              "bra": (1e-4, 1e-2, 5e-2)}
@@ -329,6 +344,25 @@ def bound_ms(nbytes: float, flops: float = 0.0, peak: float = F32_FLOPS):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def crop_bytes(torch, src, grid, out_elem: int) -> int:
+    """The bytes a crop of src (B, H, W, C) on grid (B, K, Ho, Wo, 2) must
+    move: the source pixels its taps read, each once (the four taps of
+    every output pixel, the origin clamped as the kernels clamp it,
+    counted per item: a crop reads its window, not the whole source), the
+    grid, and the output at `out_elem` bytes an element."""
+    B, H, W, C = src.shape
+    g = torch.nan_to_num(grid.float())
+    x0 = torch.clamp(torch.floor((g[..., 0] + 1.0) * 0.5 * (W - 1)), 0,
+                     W - 2).long()
+    y0 = torch.clamp(torch.floor((g[..., 1] + 1.0) * 0.5 * (H - 1)), 0,
+                     H - 2).long()
+    base = (y0 * W + x0).reshape(B, -1)
+    pixels = sum(torch.unique(torch.cat([t, t + 1, t + W, t + W + 1]))
+                 .numel() for t in base)
+    return (pixels * C * src.element_size() + grid.numel() * 4
+            + grid[..., 0].numel() * C * out_elem)
+
+
 def phase_build(ctx):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -371,9 +405,7 @@ def phase_crop(ctx):
     import torch
     import torch.nn.functional as F
 
-    from lav_tpu_torch.core.warp import (
-        affine_grid, crop_shared, crop_theta, grid_sample_shared,
-    )
+    from lav_tpu_torch.core.warp import crop_shared, grid_sample_shared
 
     dev = torch.device(ctx["device"])
     res = {}
@@ -398,6 +430,7 @@ def phase_crop(ctx):
         B, H, W, C = src.shape
         _, K, Ho, Wo, _ = grid.shape
         ms = cuda_ms(torch, lambda: crop_shared(src, grid))
+        dev_ms = device_ms(torch, lambda: crop_shared(src, grid))
         plain_ms = cuda_ms(torch, lambda: grid_sample_shared(src, grid),
                            iters=3, warmup=1)
         # library yardstick, timed only: F.grid_sample per ego on the
@@ -415,54 +448,123 @@ def phase_crop(ctx):
                                   lib_grid[b], mode="bilinear",
                                   padding_mode="zeros", align_corners=True)
                     for b in range(B)])
-        esz = src.element_size()
-        nbytes = (src.numel() * esz + grid.numel() * 4
-                  + B * K * Ho * Wo * C * esz)
+        nbytes = crop_bytes(torch, src, grid, src.element_size())
         flops = B * K * Ho * Wo * (8 * C + 24)
         bms, by = bound_ms(nbytes, flops)
-        res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, bound_ms=bms, bound_by=by)
-        log("crop", f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"F.grid_sample {lib_ms} ms, bound {bms:.4f} ms ({by}, "
-            f"{nbytes / 1e6:.1f} MB) on {ctx.get('smi', '?')}")
+        res[name] = dict(max_abs_err=err, ms=ms, device_ms=dev_ms,
+                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                         bound_by=by)
+        log("crop", f"{name}: kernel {ms:.4f} ms host-paced, {dev_ms:.4f} "
+            f"ms device-only, plain {plain_ms:.4f} ms, F.grid_sample "
+            f"{lib_ms} ms, bound {bms:.4f} ms ({by}, {nbytes / 1e6:.1f} MB): "
+            f"device-only {bms / dev_ms:.0%} of the bound on "
+            f"{ctx.get('smi', '?')}")
         del src, grid, out, ref
         torch.cuda.empty_cache()
-    # the scalar path: a narrow source whose rows are not 16-byte vectors
-    # (the 5-channel teacher BEV map's shape family)
-    g = torch.Generator(device="cpu").manual_seed(3)
-    src = torch.randn((2, 64, 64, 5), generator=g).to(dev)
-    theta = crop_theta((torch.rand((6, 2), generator=g) * 2 - 1) * 12.0,
-                       torch.rand((6,), generator=g) * 6.0, 64, 64, 2.0, 48,
-                       0.0, 0.75)
-    grid = affine_grid(theta, 48, 48).reshape(2, 3, 48, 48, 2).to(dev)
-    err = (crop_shared(src, grid.contiguous())
-           - grid_sample_shared(src, grid)).abs().max().item()
-    log("crop", f"narrow C=5 source: max_abs_err {err:.3e} "
-        f"(tol {CROP_F32_ATOL:.0e})")
-    if not err <= CROP_F32_ATOL:
-        raise AssertionError("crop_shared (scalar path) disagrees with plain")
-    del src, grid
+    res["narrow"] = _crop_narrow(torch, ctx, dev)
     bev = _crop_bev(torch, ctx, dev)
     q8 = _crop_q8(torch, ctx, dev)
     res["q8"], res["q8_s2d"] = q8["q8"], q8["s2d"]
     res["float32"].update({f"bf16_{k}": v for k, v in res["bfloat16"].items()
                            if k != "bound_by"})
     res["float32"].update({f"bev_{k}": v for k, v in bev.items()})
+    res["float32"]["narrow"] = res.pop("narrow")
     ctx["crop"] = res
 
 
-def _crop_bev(torch, ctx, dev):
-    """crop_shared at the BEV trainer's shapes (phase privileged):
-    B_BEV sources of the v2 BEV (320x320x9 f32), K = max_num_cars = 5
-    rotated crops of 192x192 each (ppm 4, offset_y as the trainer's), item
-    0's first straddling the border and its second wholly outside;
-    against its plain version, timed beside it and F.grid_sample."""
+def _crop_narrow(torch, ctx, dev):
+    """crop_shared's narrow route (rows that are no 16-byte vectors, or
+    pointers off 16-byte boundaries): C in {1, 3, 9} with the source one
+    element off a 16-byte boundary (the wrapper sends it to vec = 1), and
+    through the C entry with the output one element off too, in f32 and
+    bf16; and C = 5 aligned (the 5-channel teacher BEV's shape family).
+    Each against its plain version (f32 to CROP_F32_ATOL, bf16 to
+    CROP_BF16_ULPS of the largest value) and timed host-paced and
+    device-only beside F.grid_sample.  8 sources of 160x160, 5 crops of
+    96x96 each, one straddling the border, one wholly outside."""
     import torch.nn.functional as F
 
-    from lav_tpu_torch.config import v2_config
     from lav_tpu_torch.core.warp import (
         affine_grid, crop_shared, crop_theta, grid_sample_shared,
     )
+    from lav_tpu_torch.utils import native
+
+    g = torch.Generator(device="cpu").manual_seed(3)
+    B, H, K, crop = 8, 160, 5, 96
+    locs = (torch.rand((B, K, 2), generator=g) * 2 - 1) * 15.0
+    locs[0, 0], locs[0, 1] = torch.tensor([38.0, -39.0]), torch.tensor(
+        [1e3, -1e3])
+    theta = crop_theta(locs.reshape(-1, 2),
+                       torch.rand((B * K,), generator=g) * 6.0, H, H, 2.0,
+                       crop, 0.0, 0.75)
+    grid = affine_grid(theta, crop, crop).reshape(B, K, crop, crop, 2).to(
+        dev).contiguous()
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = "f32" if dtype == torch.float32 else "bf16"
+        for C, off in ((1, 1), (3, 1), (9, 1), (5, 0)):
+            n = B * H * H * C
+            base = torch.randn((n + 8,), generator=g).to(dev, dtype)
+            src = base[off:off + n].view(B, H, H, C)
+            ref = grid_sample_shared(src, grid)
+            outs = {"wrapper": crop_shared(src, grid)}
+            if off:   # the output off its boundary too, through the entry
+                buf = torch.empty(ref.numel() + 8, dtype=dtype, device=dev)
+                moved = buf[off:off + ref.numel()].view(ref.shape)
+                native.launch(native.ENTRIES[f"crop_shared_{dt}"],
+                              src.get_device(), src.data_ptr(),
+                              grid.data_ptr(), moved.data_ptr(), B, H, H, C,
+                              K, crop, crop, 1)
+                outs["output off 16 bytes"] = moved
+            torch.cuda.synchronize()
+            scale = ref.float().abs().max().item()
+            tol = CROP_F32_ATOL if dtype == torch.float32 else (
+                CROP_BF16_ULPS * 2.0 ** -7 * 2.0 ** math.ceil(
+                    math.log2(max(scale, 1e-30))))
+            errs = {k: (v.float() - ref.float()).abs().max().item()
+                    for k, v in outs.items()}
+            far = outs["wrapper"][0, 1].float().abs().max().item()
+            if not (max(errs.values()) <= tol and far == 0.0
+                    and all(torch.isfinite(v).all() for v in outs.values())):
+                raise AssertionError(f"crop_shared {dt} C={C} (narrow) "
+                                     f"disagrees with plain: {errs} > {tol}")
+            nchw, lib_grid = src.permute(0, 3, 1, 2), grid.to(dtype)
+
+            def lib():
+                with torch.backends.cudnn.flags(enabled=False):
+                    return [F.grid_sample(
+                        nchw[b:b + 1].expand(K, C, H, H), lib_grid[b],
+                        mode="bilinear", padding_mode="zeros",
+                        align_corners=True) for b in range(B)]
+
+            nbytes = crop_bytes(torch, src, grid, src.element_size())
+            bms, by = bound_ms(nbytes, B * K * crop * crop * (8 * C + 24))
+            r = dict(max_abs_err=max(errs.values()),
+                     ms=cuda_ms(torch, lambda: crop_shared(src, grid),
+                                iters=20),
+                     device_ms=device_ms(torch,
+                                         lambda: crop_shared(src, grid)),
+                     library_ms=cuda_ms(torch, lib, iters=5),
+                     library_device_ms=device_ms(torch, lib, iters=5),
+                     bound_ms=bms, bound_by=by)
+            res[f"{dt}_C{C}"] = r
+            log("crop", f"narrow {dt} C={C}, source {off * src.element_size()}"
+                f" bytes off 16: max_abs_err {errs} (tol {tol:.3e}); kernel "
+                f"{r['ms']:.4f} ms host-paced, {r['device_ms']:.4f} "
+                f"device-only, F.grid_sample {r['library_ms']:.4f} / "
+                f"{r['library_device_ms']:.4f}, bound {bms:.4f} ms ({by}, "
+                f"{nbytes / 1e6:.1f} MB) on {ctx.get('smi', '?')}")
+            del base, src, ref, outs
+    return res
+
+
+def _bev_crop_inputs(torch, dev):
+    """The BEV trainer's crop_shared inputs: B_BEV sources of the v2 BEV
+    (320x320x9 f32), K = max_num_cars = 5 rotated crops of 192x192 each
+    (ppm 4, offset_y as the trainer's), item 0's first straddling the
+    border and its second wholly outside."""
+    from lav_tpu_torch.config import v2_config
+    from lav_tpu_torch.core.warp import affine_grid, crop_theta
 
     cfg = v2_config()
     B, K, crop = B_BEV, cfg.max_num_cars, cfg.crop_size * 2
@@ -477,6 +579,20 @@ def _crop_bev(torch, ctx, dev):
                        float(cfg.pixels_per_meter), crop, 0.0, cfg.y_offset)
     grid = affine_grid(theta, crop, crop).reshape(B, K, crop, crop, 2).to(
         dev).contiguous()
+    return src, grid
+
+
+def _crop_bev(torch, ctx, dev):
+    """crop_shared at the BEV trainer's shapes (phase privileged,
+    `_bev_crop_inputs`) against its plain version, timed beside it and
+    F.grid_sample."""
+    import torch.nn.functional as F
+
+    from lav_tpu_torch.core.warp import crop_shared, grid_sample_shared
+
+    src, grid = _bev_crop_inputs(torch, dev)
+    B, H, W, C = src.shape
+    _, K, crop, _, _ = grid.shape
     out = crop_shared(src, grid)
     ref = grid_sample_shared(src, grid)
     torch.cuda.synchronize()
@@ -494,15 +610,18 @@ def _crop_bev(torch, ctx, dev):
             F.grid_sample(nchw[b:b + 1].expand(K, C, H, W), grid[b],
                           mode="bilinear", padding_mode="zeros",
                           align_corners=True) for b in range(B)], iters=5)
-    nbytes = src.numel() * 4 + grid.numel() * 4 + out.numel() * 4
+    nbytes = crop_bytes(torch, src, grid, 4)
     bms, by = bound_ms(nbytes, B * K * crop * crop * (8 * C + 24))
     r = dict(max_abs_err=err, ms=cuda_ms(torch, lambda: crop_shared(src, grid)),
+             device_ms=device_ms(torch, lambda: crop_shared(src, grid)),
              plain_ms=cuda_ms(torch, lambda: grid_sample_shared(src, grid),
                               iters=3, warmup=1),
              library_ms=lib_ms, bound_ms=bms, bound_by=by)
-    log("crop", f"BEV: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
-        f"ms, F.grid_sample {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}, "
-        f"{nbytes / 1e6:.1f} MB) on {ctx.get('smi', '?')}")
+    log("crop", f"BEV: kernel {r['ms']:.4f} ms host-paced, "
+        f"{r['device_ms']:.4f} ms device-only ({bms / r['device_ms']:.0%} of "
+        f"the bound), plain {r['plain_ms']:.4f} ms, F.grid_sample "
+        f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by}, {nbytes / 1e6:.1f} MB) "
+        f"on {ctx.get('smi', '?')}")
     del src, grid, out
     torch.cuda.empty_cache()
     return r
@@ -575,7 +694,7 @@ def _crop_q8(torch, ctx, dev):
     inv = inverse_scale(x_scale)
     B, H, W, C = src.shape
     _, K, Ho, Wo, _ = grid.shape
-    nbytes = src.numel() * 2 + grid.numel() * 4 + B * K * Ho * Wo * C
+    nbytes = crop_bytes(torch, src, grid, 1)
     flops = B * K * Ho * Wo * (10 * C + 24)
     bms, by = bound_ms(nbytes, flops)
     res = {}
@@ -907,6 +1026,121 @@ def phase_scatter(ctx):
         label: _scatter_max_agent(torch, ctx, label, *args)
         for label, args in agent["max"].items()}
     ctx["scatter"] = res
+    ctx["scatter_bwd"] = _scatter_max_bwd_cases(torch, ctx, dev,
+                                                agent["max"])
+
+
+def _scatter_max_bwd_cases(torch, ctx, dev, agent_max):
+    """Kernel scatter_max_bwd (the production eval canvas' gradient)
+    against its plain version, exact with NaN positions equal, on the
+    forward's sort and sorting itself: on the canvas of the production
+    tick whose ring buffer is full (16 egos, bf16, and its payload in
+    f32), on the f32 agent's canvas shapes (4 x 49152 points, 64
+    channels, 4 x 102400 rows; post-ReLU payload, a fifth invalid), and
+    on crafted rows of 255, 256, 257, 300 and 1,000 points tied at 0 and
+    at 3.0, with a NaN payload lane and a NaN and an inf in g, f32 and
+    bf16.  The first two are timed: host-paced and device-only ms and host
+    us per call, beside the plain version and autograd through
+    scatter_reduce "amax" into a zero canvas (include_self, which splits
+    ties among the points and the zero too)."""
+    label, (feat, pid, S) = [(k, v) for k, v in agent_max.items()
+                             if k != "tick 1"][0]
+    g = torch.Generator(device="cpu").manual_seed(12)
+    E, P, G = NUM_EGO, 2 * MAX_POINTS * 3, 320 * 320
+    local = torch.randint(0, G // 4, (E, P), generator=g)
+    invalid = torch.rand((E, P), generator=g) < 0.2
+    agent_pid = torch.where(invalid, torch.full_like(local, E * G),
+                            local + torch.arange(E)[:, None] * G)
+    sizes = (255, 256, 257, 300, 1000)
+    tie_feat = torch.rand((sum(sizes) + 100, 64), generator=g)
+    tie_pid = torch.randint(len(sizes), 20, (tie_feat.shape[0],),
+                            generator=g)
+    at = 0
+    for row, n in enumerate(sizes):     # ties at 0 in channel 0, at 3.0
+        tie_pid[at:at + n] = row        # in the others
+        tie_feat[at:at + n] = 3.0
+        tie_feat[at:at + n, 0] = 0.0
+        at += n
+    tie_feat[7, 5] = float("nan")
+    cases = [
+        (f"production {label}", feat, pid, S, True),
+        (f"production {label}, f32", feat.float(), pid, S, True),
+        ("f32 agent's canvas", torch.relu(torch.randn(
+            (E * P, 64), generator=g)).to(dev), agent_pid.reshape(-1).to(
+                torch.int32).to(dev), E * G, True),
+        ("rows of 255-1000 tied points, f32", tie_feat.to(dev),
+         tie_pid.to(torch.int32).to(dev), 20, False),
+        ("rows of 255-1000 tied points, bf16", tie_feat.to(
+            dev, torch.bfloat16), tie_pid.to(torch.int32).to(dev), 20,
+         False)]
+    res = {}
+    for name, f, pid_, S_, timed in cases:
+        res[name] = _scatter_max_bwd_case(torch, ctx, name, f, pid_, S_,
+                                          timed, crafted=not timed)
+    return res
+
+
+def _scatter_max_bwd_case(torch, ctx, label, feat, pid, S, timed, crafted):
+    from lav_tpu_torch.ops.pillar import (
+        scatter_max, scatter_max_bwd, scatter_max_bwd_plain,
+    )
+
+    canvas, sort = scatter_max(feat, pid, S, keep_sort=True)
+    C = feat.shape[1]
+    g = torch.randn((S, C), generator=torch.Generator(device="cpu")
+                    .manual_seed(13)).to(feat.device, feat.dtype)
+    if crafted:
+        g[0, 0], g[3, 4] = float("nan"), float("inf")
+    ref = scatter_max_bwd_plain(g, feat, pid, canvas)
+    routes = {"sorted": scatter_max_bwd(g, feat, pid, canvas, sort),
+              "standalone": scatter_max_bwd(g, feat, pid, canvas)}
+    torch.cuda.synchronize()
+    for k, v in routes.items():
+        try:
+            torch.testing.assert_close(v, ref, rtol=0, atol=0,
+                                       equal_nan=True)
+        except AssertionError as e:
+            raise AssertionError(f"scatter_max_bwd ({label}, {k}) disagrees "
+                                 f"with its plain version: {e}") from None
+    ok = (pid >= 0) & (pid < S)
+    rows = torch.unique(pid[ok]).numel()
+    zero_ties = int(((feat == 0) & ok[:, None]).sum())
+    log("scatter", f"max_bwd {label}: {feat.shape[0]} points x {C}, {S} "
+        f"rows, {rows} touched, {zero_ties} payloads tied at 0 (the zero "
+        f"counts one more), NaN in the result {int(ref.isnan().sum())}; "
+        "exact on the forward's sort and sorting itself")
+    if not timed:
+        return dict(max_abs_err=0.0)
+    idx = pid.long()[ok][:, None].expand(-1, C)
+    fvalid = feat[ok].detach().clone().requires_grad_(True)
+    lib_canvas = feat.new_zeros((S, C)).scatter_reduce(
+        0, idx, fvalid, "amax", include_self=True)
+
+    def lib():
+        return torch.autograd.grad(lib_canvas, fvalid, g, retain_graph=True)
+
+    def kernel():
+        return scatter_max_bwd(g, feat, pid, canvas, sort)
+
+    r = dict(max_abs_err=0.0, ms=cuda_ms(torch, kernel, iters=20),
+             device_ms=device_ms(torch, kernel),
+             host_us=host_us(torch, kernel, n=50),
+             plain_ms=cuda_ms(torch, lambda: scatter_max_bwd_plain(
+                 g, feat, pid, canvas), iters=3, warmup=1),
+             library_ms=cuda_ms(torch, lib, iters=10),
+             library_device_ms=device_ms(torch, lib, iters=10))
+    e = feat.element_size()
+    nbytes = 2 * feat.numel() * e + pid.numel() * 4 + 2 * rows * C * e
+    r["bound_ms"], r["bound_by"] = bound_ms(nbytes, feat.numel())
+    log("scatter", f"max_bwd {label}: kernel {r['ms']:.4f} ms host-paced, "
+        f"{r['device_ms']:.4f} ms device-only, {r['host_us']:.1f} us host "
+        f"per call; plain {r['plain_ms']:.4f} ms; scatter_reduce autograd "
+        f"{r['library_ms']:.4f} / {r['library_device_ms']:.4f} ms; bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {nbytes / 1e6:.1f} MB): "
+        f"device-only {r['device_ms'] / r['bound_ms']:.2f}x the bound on "
+        f"{ctx.get('smi', '?')}")
+    del lib_canvas, fvalid, idx
+    return r
 
 
 def _scatter_max_agent(torch, ctx, label, feat, pid, S):
@@ -1013,9 +1247,9 @@ def _agent_scatter_inputs(torch, ctx):
     taken = {op: {} for op in real}
 
     def spy(op):
-        def run(feat, pid, num_segments):
+        def run(feat, pid, num_segments, **kw):
             seen[op].append((feat.clone(), pid.clone(), num_segments))
-            return real[op](feat, pid, num_segments)
+            return real[op](feat, pid, num_segments, **kw)
         return run
 
     for op in real:
@@ -1826,8 +2060,7 @@ def _crop_fwd_step(torch, ctx, dev, dtype):
             raise AssertionError(f"crop_shared {dtype} disagrees with plain "
                                  f"at the step's shapes ({e} > {tol})")
         err = max(err, e)
-    nbytes = sum(src.numel() * src.element_size() + grid.numel() * 4
-                 + grid[..., 0].numel() * src.shape[-1] * src.element_size()
+    nbytes = sum(crop_bytes(torch, src, grid, src.element_size())
                  for src, grid in calls)
     flops = sum(grid[..., 0].numel() * (8 * src.shape[-1] + 24)
                 for src, grid in calls)
@@ -2352,6 +2585,7 @@ def phase_train(ctx):
         adam, distill_models, distill_setup, make_batch,
         make_distill_forward, make_full_train_step,
     )
+    from lav_tpu_torch.utils import native
 
     # step 1 on the card against the port on the CPU: B = 2, the same
     # weights, batch and noise; f32, then bf16 (lav_tpu's --dtype), then
@@ -2371,13 +2605,10 @@ def phase_train(ctx):
         return lambda m, b, dev: step(m, adam(m), b, noise=moved(dev))
 
     def eval_grads(m, b, dev):
+        # the lidar model's eval route: its canvas max is kernel
+        # scatter_max, its gradient kernel scatter_max_bwd
         loss, metrics = bf16_forward(m.eval(), b, moved(dev))
         loss.backward()
-        # the inference route's canvas max (kernel scatter_max) has no
-        # backward: on the card the point MLP takes no gradient in eval
-        # mode, so neither side counts it
-        for p in m["lidar_model"].point_pillar.parameters():
-            p.grad = None
         metrics["grad_norm"] = torch.sqrt(sum(
             (p.grad * p.grad).sum() for p in m.parameters()
             if p.grad is not None))
@@ -2389,12 +2620,22 @@ def phase_train(ctx):
             ("distill bf16", train_step(torch.bfloat16), (),
              TRAIN_BF16_TOLS),
             ("distill bf16, BN on its running statistics", eval_grads,
-             TRAIN_LEAVES[1:] + EVAL_LEAF, TRAIN_BF16_EVAL_TOLS)):
+             TRAIN_LEAVES + EVAL_LEAF, TRAIN_BF16_EVAL_TOLS)):
+        eval_path = run is eval_grads
+        if eval_path:
+            native.reset_launches()
         bad = _card_vs_cpu(
             ctx, "train", label,
             distill_models(cfg, torch.Generator().manual_seed(0)),
             make_batch(cfg, 2, MAX_POINTS_TRAIN, seed=0, device="cpu"),
             run, leaves, tols)
+        if eval_path:   # two runs on the card, one backward each
+            ctx["launches_eval"] = dict(native.LAUNCHES)
+            log("train", f"{label}: launches on the card "
+                f"{ {k: v for k, v in native.LAUNCHES.items() if v} }")
+            if native.LAUNCHES["scatter_max_bwd"] != 2:
+                raise AssertionError("the eval route's backward did not run "
+                                     "kernel scatter_max_bwd once a run")
         if bad:
             raise AssertionError(f"train step 1, card vs CPU: {bad}")
         torch.cuda.empty_cache()
@@ -2511,13 +2752,22 @@ def kernels_line(ctx):
     conv2d_int8, the variants tick for crop_shared_q8_s2d and
     pillar_scatter_max_bf16, the gather probe for take_along_rows, the
     distillation step (3 steps) for crop_shared_bwd and
-    pillar_scatter_max_bwd, the bf16 step (3 steps) for their bf16 forms;
-    crop_shared's row adds `bev_launches`, the BEV trainer's (3 steps),
-    with its `bev_*` times from phase crop, and `step_*` / `step_bf16_*`,
-    its four calls a distillation step timed in phase train_kernels with
-    the f32 / bf16 step's launches (3 steps)."""
+    pillar_scatter_max_bwd, the bf16 step (3 steps) for their bf16 forms,
+    the bf16 eval-mode gradient of phase train (two runs on the card) for
+    scatter_max_bwd, timed on the production tick's canvas with the f32
+    agent's canvas as `f32_agent_*`; crop_shared's row adds
+    `bev_launches`, the BEV trainer's (3 steps), with its `bev_*` times
+    from phase crop, and `step_*` / `step_bf16_*`, its four calls a
+    distillation step timed in phase train_kernels with the f32 / bf16
+    step's launches (3 steps)."""
     crop, scatter = ctx.get("crop", {}), ctx.get("scatter", {})
     train = ctx.get("train_kernels", {})
+    bwd = ctx.get("scatter_bwd", {})
+    zero_bwd = next((dict(v) for k, v in bwd.items()
+                     if k.startswith("production") and "f32" not in k), None)
+    if zero_bwd is not None:
+        zero_bwd.update({f"f32_agent_{k}": v for k, v in
+                         bwd["f32 agent's canvas"].items()})
     specs = (
         ("crop_shared", crop.get("float32"), "agent", "crop_shared.cu",
          "lav_tpu/core/warp_pallas.py:108"),
@@ -2546,6 +2796,8 @@ def kernels_line(ctx):
         ("pillar_scatter_max_bwd_bf16",
          train.get("pillar_scatter_max_bwd_bf16"), "train_bf16",
          "pillar_scatter_max.cu", "lav_tpu/ops/pillar.py:519"),
+        ("scatter_max_bwd", zero_bwd, "eval", "pillar_scatter_max.cu",
+         "lav_tpu/ops/pillar.py:483"),
     )
     rows = []
     for name, r, path, source, replaces in specs:

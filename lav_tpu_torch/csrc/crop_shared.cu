@@ -17,11 +17,43 @@
 // Bound: bytes.  Each output element is written once and each source
 // element is read at least once; at the agent's shapes (src 160x160x384,
 // K+1 = 16 crops of 96x96) the f32 output is 226 MB per ego against a
-// 39 MB source, so the write dominates.  Design: one block per (batch,
-// crop, tile of output pixels); threadIdx.x runs over channel vectors of
-// 16 bytes (consecutive threads on consecutive channels, so the four tap
-// rows and the output row are coalesced), threadIdx.y over pixels.  The
-// source (39 MB f32) stays resident in the 50 MB L2 across the crops.
+// 39 MB source, so the write dominates; at the BEV trainer's (64 sources
+// of 320x320x9 f32, 5 crops of 192x192) the output is 424 MB, the grid
+// 94 MB and the sources 236 MB.
+//
+// The plain forms (crop_shared_{f32,bf16}) run crop_tiled.  The first
+// design (crop_shared_kernel, which the int8 forms' scalar path keeps)
+// gave each output vector of 16 bytes, or each channel where C is no
+// multiple of the vector, a thread that read the pixel's grid point and
+// computed its weights again, over 32 pixels of one output row a block:
+// at C = 9 a block of 9 x 28 threads whose second pass over its pixels
+// ran 4 of its 28 rows.  crop_tiled:
+//  * one block makes a tile of output pixels; its setup gives each pixel
+//    one thread, which reads the grid point once (a float2) and computes
+//    the weights, the tap and the output offset into shared memory once
+//    for all the channels;
+//  * then the block's threads walk the tile's pieces in output order,
+//    pixel by pixel and piece by piece within a pixel, consecutive threads
+//    on consecutive pieces: 16 bytes of channels a piece on the vector
+//    route (C a multiple of 16 bytes, source and output 16-byte aligned),
+//    one channel on the narrow route (any C, any alignment), so a warp's
+//    taps and stores are contiguous runs at any C.
+// Sizes, each measured in turns against its alternatives on the card
+// (`utils/turns.py crop --diagnose --variants`, PERF.md): tiles 32 pixels
+// wide (16-pixel-wide ones were 20% slower at the BEV's shapes, 11% in
+// bf16 at the agent's), 8 rows on the narrow route (4 rows were 17%
+// slower at the BEV's) and one on the vector route (8 rows were 33%
+// slower in f32, 17% in bf16), and 4 blocks an SM (8 were within 4%
+// either way).  A thread has one piece's taps in flight: builds that
+// loaded two or four pieces' taps before summing any were 20-40% slower.
+// Staging the narrow tile in shared memory and storing it a row a warp
+// in 16-byte pieces, each row at the alignment its run has in the
+// output, was 11% slower at the BEV's shapes (a warp's 4-byte stores
+// already write whole lines), and was taken out.  Computing the setup
+// again for each piece, as the first design did, was 2.1x slower there.
+// Weights, FMA chain and rounding are crop_shared_kernel's, the chain
+// spelt out in intrinsics as nvcc contracted it there, so the output is
+// that kernel's bit for bit (checked on the card, `utils/turns.py crop`).
 //
 // q8 entries (crop_shared_q8_{f32,bf16}): the TPU kernel's q8=True
 // epilogue (warp_pallas.py:164-168).  The f32 sum above is not cast to the
@@ -41,8 +73,8 @@
 // order of warp_pallas.py:250-253.  Ho and Wo must be even.
 //
 // The int8 forms over 16-byte source vectors run their own kernel,
-// crop_q8_tiled; the plain forms and the scalar path keep
-// crop_shared_kernel.  Measured on the card at the production shapes,
+// crop_q8_tiled; their scalar path keeps crop_shared_kernel.  Measured on
+// the card at the production shapes,
 // crop_shared_kernel's int8 forms were bound by their instructions, not
 // by their bytes (PERF.md): without their stores they ran 4% faster,
 // reading one tap instead of four 19% faster, with every tap from one
@@ -360,6 +392,156 @@ int launch_q8(const void* src, const void* grid, void* out,
   return (int)cudaGetLastError();
 }
 
+// ---- crop_tiled: the plain forms (f32, bf16) ----
+
+// a block's threads and the blocks an SM; its tile, kTileX pixels wide,
+// is kNarrowTy rows on the narrow route (a channel a piece) and one row
+// on the vector route (16 bytes a piece); PERF.md has the measured
+// alternatives
+constexpr int kPlainThreads = 256, kPlainBlocks = 4;
+constexpr int kTileX = 32, kNarrowTy = 8;
+
+// pixel p's weights (rounded to T) and top-left tap (a source element),
+// written as crop_shared_kernel computes them; g8: the grid is 8-byte
+// aligned, so the point is one float2 load
+template <typename T>
+__device__ __forceinline__ void pixel_setup(const float* g, bool g8, int p,
+                                            int H, int W, int C, float4& wv,
+                                            int& tap) {
+  float gx, gy;
+  if (g8) {
+    const float2 v = reinterpret_cast<const float2*>(g)[p];
+    gx = v.x, gy = v.y;
+  } else {
+    gx = g[2 * p], gy = g[2 * p + 1];
+  }
+  const float ix = (gx + 1.0f) * 0.5f * (float)(W - 1);
+  const float iy = (gy + 1.0f) * 0.5f * (float)(H - 1);
+  const float x0f = fminf(fmaxf(floorf(ix), 0.0f), (float)(W - 2));
+  const float y0f = fminf(fmaxf(floorf(iy), 0.0f), (float)(H - 2));
+  const float wy0 = fmaxf(0.0f, 1.0f - fabsf(iy - y0f));
+  const float wy1 = fmaxf(0.0f, 1.0f - fabsf(iy - (y0f + 1.0f)));
+  const float wx0 = fmaxf(0.0f, 1.0f - fabsf(ix - x0f));
+  const float wx1 = fmaxf(0.0f, 1.0f - fabsf(ix - (x0f + 1.0f)));
+  wv = make_float4(to_f(from_f<T>(__fmul_rn(wy0, wx0))),
+                   to_f(from_f<T>(__fmul_rn(wy0, wx1))),
+                   to_f(from_f<T>(__fmul_rn(wy1, wx0))),
+                   to_f(from_f<T>(__fmul_rn(wy1, wx1))));
+  tap = ((int)y0f * W + (int)x0f) * C;
+}
+
+// the V outputs of one piece: crop_shared_kernel's sums as nvcc
+// contracted them there (w00 a fused onto the rounded w01 b, then w10 c
+// and w11 d fused in turn; the other two orders of rounding differ in the
+// last bit, measured on the card), spelt out so that no build contracts
+// them otherwise
+template <typename T, int V>
+__device__ __forceinline__ Vec<T, V> plain_piece(const Vec<T, V> a,
+                                                 const Vec<T, V> b,
+                                                 const Vec<T, V> c,
+                                                 const Vec<T, V> d,
+                                                 const float4 w) {
+  Vec<T, V> r;
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    float acc = __fmaf_rn(w.x, to_f(a.v[i]), __fmul_rn(w.y, to_f(b.v[i])));
+    acc = __fmaf_rn(w.z, to_f(c.v[i]), acc);
+    acc = __fmaf_rn(w.w, to_f(d.v[i]), acc);
+    r.v[i] = from_f<T>(acc);
+  }
+  return r;
+}
+
+// One block makes a TX x TY tile of output pixels of one crop.  The
+// setup gives each pixel one thread, which computes its weights, tap and
+// output offset into shared memory once for all its channels.  Then the
+// block's threads walk the tile's pieces in output order, pixel by pixel
+// and within a pixel piece by piece: V = 16 bytes of channels on the
+// vector route (C a multiple of V, 16-byte aligned source and output),
+// V = 1 on the narrow route (any C, any alignment).  Consecutive threads
+// take consecutive pieces, so a warp's taps and stores are contiguous
+// runs.
+template <typename T, int V>
+__global__ void __launch_bounds__(kPlainThreads, kPlainBlocks)
+    crop_tiled(const T* __restrict__ src, const float* __restrict__ grid,
+               T* __restrict__ out, int H, int W, int C, int K, int Ho,
+               int Wo, int tiles_x) {
+  constexpr int TX = kTileX, TY = V == 1 ? kNarrowTy : 1, PIX = TX * TY;
+  static_assert(PIX <= kPlainThreads, "a thread a pixel in the setup");
+  __shared__ float4 pw[PIX];  // each pixel's weights
+  // each pixel's top-left tap and output offset (< 0: past the crop)
+  __shared__ int2 pq[PIX];
+
+  const int tid = threadIdx.x;
+  const int tyi = blockIdx.x / tiles_x;
+  const int ty0 = tyi * TY, tx0 = (blockIdx.x - tyi * tiles_x) * TX;
+  const T* s = src + (size_t)blockIdx.z * H * W * C;
+  const size_t crop = (size_t)blockIdx.z * K + blockIdx.y;
+  const float* g = grid + crop * Ho * Wo * 2;
+  T* o = out + crop * Ho * Wo * C;
+
+  if (tid < PIX) {
+    const int y = ty0 + tid / TX, x = tx0 + tid % TX;
+    float4 wv = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    int2 q = make_int2(0, -1);
+    if (y < Ho && x < Wo) {
+      const bool g8 = (reinterpret_cast<uintptr_t>(grid) & 7) == 0;
+      pixel_setup<T>(g, g8, y * Wo + x, H, W, C, wv, q.x);
+      q.y = (y * Wo + x) * C;
+    }
+    pw[tid] = wv;
+    pq[tid] = q;
+  }
+  __syncthreads();
+
+  const int P = C / V;                // pieces a pixel
+  const int right = P, below = W * P;  // the other taps, in pieces
+  const int dpix = kPlainThreads / P, dpiece = kPlainThreads % P;
+  int pix = tid / P, piece = tid - pix * P;
+  for (; pix < PIX; pix += dpix) {
+    const int2 q = pq[pix];
+    if (q.y >= 0) {
+      const auto* t = reinterpret_cast<const Vec<T, V>*>(s + q.x) + piece;
+      reinterpret_cast<Vec<T, V>*>(o + q.y)[piece] = plain_piece<T, V>(
+          t[0], t[right], t[below], t[below + right], pw[pix]);
+    }
+    piece += dpiece;
+    if (piece >= P) piece -= P, ++pix;
+  }
+}
+
+template <typename T, int V>
+int launch_tiled(const void* src, const void* grid, void* out, int B, int H,
+                 int W, int C, int K, int Ho, int Wo, cudaStream_t stream) {
+  constexpr int TY = V == 1 ? kNarrowTy : 1;
+  const int tiles_x = (Wo + kTileX - 1) / kTileX;
+  const int tiles_y = (Ho + TY - 1) / TY;
+  crop_tiled<T, V><<<dim3(tiles_x * tiles_y, K, B), kPlainThreads, 0,
+                     stream>>>(static_cast<const T*>(src),
+                               static_cast<const float*>(grid),
+                               static_cast<T*>(out), H, W, C, K, Ho, Wo,
+                               tiles_x);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_plain(const void* src, const void* grid, void* out, int B, int H,
+                 int W, int C, int K, int Ho, int Wo, int vec,
+                 cudaStream_t stream) {
+  // offsets within a source and within a crop are ints
+  if ((long long)H * W * C > INT_MAX || (long long)Ho * Wo * C > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  constexpr int VMAX = 16 / sizeof(T);
+  const bool vector =
+      vec == VMAX && C % VMAX == 0 &&
+      ((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(out)) &
+       15) == 0;
+  return vector ? launch_tiled<T, VMAX>(src, grid, out, B, H, W, C, K, Ho,
+                                        Wo, stream)
+                : launch_tiled<T, 1>(src, grid, out, B, H, W, C, K, Ho, Wo,
+                                     stream);
+}
+
 template <typename T, typename OutT, bool S2D = false>
 int dispatch(const void* src, const void* grid, void* out, const void* inv_s,
              int B, int H, int W, int C, int K, int Ho, int Wo, int vec,
@@ -367,17 +549,15 @@ int dispatch(const void* src, const void* grid, void* out, const void* inv_s,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B == 0 || K == 0 || Ho * Wo == 0 || C == 0) return 0;
   if (S2D && (Ho % 2 || Wo % 2)) return (int)cudaErrorInvalidValue;
-  constexpr int VMAX = 16 / sizeof(T);
-  if (vec == VMAX) {
-    if constexpr (std::is_same<OutT, int8_t>::value)
+  if constexpr (std::is_same<OutT, T>::value) {
+    return launch_plain<T>(src, grid, out, B, H, W, C, K, Ho, Wo, vec, st);
+  } else {
+    if (vec == 16 / (int)sizeof(T))
       return launch_q8<T, S2D>(src, grid, out, inv_s, B, H, W, C, K, Ho, Wo,
                                st);
-    else
-      return launch<T, VMAX, OutT, S2D>(src, grid, out, inv_s, B, H, W, C,
-                                        K, Ho, Wo, st);
+    return launch<T, 1, OutT, S2D>(src, grid, out, inv_s, B, H, W, C, K, Ho,
+                                   Wo, st);
   }
-  return launch<T, 1, OutT, S2D>(src, grid, out, inv_s, B, H, W, C, K, Ho,
-                                 Wo, st);
 }
 
 }  // namespace

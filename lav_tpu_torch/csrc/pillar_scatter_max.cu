@@ -613,7 +613,7 @@ extern "C" int pillar_scatter_max_bf16(const void* feat, const void* pid,
                                 scratch, scratch_bytes, stream);
 }
 
-// ---- pillar_scatter_max_bwd: the gradient of the NEG-init canvas max ----
+// ---- pillar_scatter_max_bwd, scatter_max_bwd: the canvas max's gradient ----
 //
 // Replaces XLA's VJP of lav_tpu's training canvas,
 // lav_tpu/ops/pillar.py:516-522: where(keep, feat, -1e30) -> .at[pid].max
@@ -641,6 +641,16 @@ extern "C" int pillar_scatter_max_bf16(const void* feat, const void* pid,
 // has to match: a NaN payload equals nothing and gets 0.  Up to the
 // division, the result is exact (no sum is taken), whatever order the
 // points are met in.
+//
+// scatter_max_bwd_{f32,bf16}: the gradient of the zero-init canvas
+// (scatter_max_{f32,bf16}), XLA's VJP of lav_tpu's production eval route
+// jnp.zeros((S, C)).at[pid].max(feat, mode="drop") (lav_tpu/ops/
+// pillar.py:482-487).  The same split, with the zero the canvas starts
+// from as one more operand: where canvas[s, c] is 0 it ties, so n counts
+// it (n = ties + 1, under the same ceiling: JAX adds the 1 in the element
+// type), and a point that does not tie gets g * 0 (NaN where g is NaN or
+// inf, as JAX multiplies by its 0 coefficient).  It reads scatter_max's
+// own sort (`keep_sort`), laid out as the NEG-init form's.
 //
 // Bound: bytes.  feat, the gathered canvas and g rows and d_feat, about
 // 4 x 16.8 MB at the distillation step's f32 shapes (4 x 16384 points, 64
@@ -781,18 +791,22 @@ __device__ __forceinline__ int hot_row_of(const BwdArgs<T>& a, int n_hot,
 
 // d_feat of piece j of the points idx[k], idx[k + step], ... below end,
 // whose row's max piece is m, gradient piece gv, tie counts cnt; F points'
-// loads at a time
-template <typename T, int W, int F>
+// loads at a time.  kZero: the zero-init canvas' gradient, where a max of
+// 0 counts one more tie and a point that does not tie gets g * 0
+template <typename T, bool kZero, int W, int F>
 __device__ __forceinline__ void write_shares(const BwdArgs<T>& a, int k,
                                              int end, int step, int j,
                                              const Lanes<T, W>& m,
                                              const Lanes<T, W>& gv,
                                              const int* cnt) {
   constexpr int kN = Lanes<T, W>::kN;
-  float share[kN];
+  float share[kN], other[kN];
 #pragma unroll
-  for (int l = 0; l < kN; ++l)
-    share[l] = cnt[l] ? Grad<T>::share(gv.v[l], cnt[l]) : 0.0f;
+  for (int l = 0; l < kN; ++l) {
+    const int n = cnt[l] + (kZero && m.v[l] == 0.0f);
+    share[l] = cnt[l] ? Grad<T>::share(gv.v[l], n) : 0.0f;
+    other[l] = kZero ? Grad<T>::round(__fmul_rn(gv.v[l], 0.0f)) : 0.0f;
+  }
   for (; k < end; k += F * step) {
     long long p[F];
     Lanes<T, W> f[F];
@@ -808,7 +822,7 @@ __device__ __forceinline__ void write_shares(const BwdArgs<T>& a, int k,
       Lanes<T, W> r;
 #pragma unroll
       for (int l = 0; l < kN; ++l)
-        r.v[l] = f[i].v[l] == m.v[l] ? share[l] : 0.0f;
+        r.v[l] = f[i].v[l] == m.v[l] ? share[l] : other[l];
       stl<T, W>(a, p[i], j, r);
     }
   }
@@ -840,7 +854,7 @@ __device__ __forceinline__ void count_ties(const BwdArgs<T>& a, int k,
 
 // 1. blocks [0, hot_blocks): the hot chunks' tie counts; the others a
 // point (and a sorted position) per threadIdx.y
-template <typename T, int W>
+template <typename T, bool kZero, int W>
 __global__ void __launch_bounds__(kThreads, 8) max_bwd_rows(BwdArgs<T> a) {
   constexpr int kN = Lanes<T, W>::kN;
   if ((int)blockIdx.x >= a.hot_blocks) {
@@ -865,7 +879,7 @@ __global__ void __launch_bounds__(kThreads, 8) max_bwd_rows(BwdArgs<T> a) {
       const Lanes<T, W> gv = ldl<T, W>(a, a.g, s, j);
       int cnt[kN] = {};
       count_ties<T, W, 1>(a, start, end, 1, j, m, cnt);
-      write_shares<T, W, 1>(a, start, end, 1, j, m, gv, cnt);
+      write_shares<T, kZero, W, 1>(a, start, end, 1, j, m, gv, cnt);
     }
     return;
   }
@@ -906,7 +920,7 @@ __global__ void __launch_bounds__(kThreads, 8) max_bwd_rows(BwdArgs<T> a) {
 }
 
 // 2. the hot chunks' d_feat, from their rows' summed chunk counts
-template <typename T, int W>
+template <typename T, bool kZero, int W>
 __global__ void __launch_bounds__(kThreads) max_bwd_hot(BwdArgs<T> a) {
   constexpr int kN = Lanes<T, W>::kN;
   __shared__ int tot[kThreads * kN];
@@ -936,7 +950,7 @@ __global__ void __launch_bounds__(kThreads) max_bwd_hot(BwdArgs<T> a) {
         int cnt[kN];
 #pragma unroll
         for (int l = 0; l < kN; ++l) cnt[l] = tot[threadIdx.x * kN + l];
-        write_shares<T, W, kHotInFlight>(
+        write_shares<T, kZero, W, kHotInFlight>(
             a, k0 + (int)threadIdx.y, k1, blockDim.y, j,
             ldl<T, W>(a, a.canvas, s, j), ldl<T, W>(a, a.g, s, j), cnt);
       }
@@ -945,16 +959,17 @@ __global__ void __launch_bounds__(kThreads) max_bwd_hot(BwdArgs<T> a) {
   }
 }
 
-template <typename T, int W>
+template <typename T, bool kZero, int W>
 void launch_bwd(const BwdArgs<T>& a, int blocks_hot, cudaStream_t st) {
   const dim3 block = rows_block(a.pieces);
   const long long blocks = a.hot_blocks + ((long long)a.n + block.y - 1) /
                                               block.y;
-  max_bwd_rows<T, W><<<(unsigned)blocks, block, 0, st>>>(a);
-  if (blocks_hot > 0) max_bwd_hot<T, W><<<blocks_hot, block, 0, st>>>(a);
+  max_bwd_rows<T, kZero, W><<<(unsigned)blocks, block, 0, st>>>(a);
+  if (blocks_hot > 0)
+    max_bwd_hot<T, kZero, W><<<blocks_hot, block, 0, st>>>(a);
 }
 
-template <typename T>
+template <typename T, bool kZero>
 int canvas_max_bwd(const void* g, const void* feat, const void* pid,
                    const void* canvas, void* out, long long n_points, int C,
                    long long segments, void* scratch, long long scratch_bytes,
@@ -1001,9 +1016,9 @@ int canvas_max_bwd(const void* g, const void* feat, const void* pid,
       (int)row_bytes,
       pieces,
       hot};
-  if (W == 4) launch_bwd<T, 4>(a, hot, st);
-  else if (W == 2) launch_bwd<T, 2>(a, hot, st);
-  else launch_bwd<T, 1>(a, hot, st);
+  if (W == 4) launch_bwd<T, kZero, 4>(a, hot, st);
+  else if (W == 2) launch_bwd<T, kZero, 2>(a, hot, st);
+  else launch_bwd<T, kZero, 1>(a, hot, st);
   return (int)cudaGetLastError();
 }
 
@@ -1022,9 +1037,9 @@ extern "C" int pillar_scatter_max_bwd_f32(const void* g, const void* feat,
                                           void* scratch,
                                           long long scratch_bytes, int sorted,
                                           void* stream) {
-  return canvas_max_bwd<float>(g, feat, pid, canvas, out, n_points, C,
-                               segments, scratch, scratch_bytes, sorted,
-                               stream);
+  return canvas_max_bwd<float, false>(g, feat, pid, canvas, out, n_points,
+                                      C, segments, scratch, scratch_bytes,
+                                      sorted, stream);
 }
 
 extern "C" int pillar_scatter_max_bwd_bf16(const void* g, const void* feat,
@@ -1034,7 +1049,29 @@ extern "C" int pillar_scatter_max_bwd_bf16(const void* g, const void* feat,
                                            long long segments, void* scratch,
                                            long long scratch_bytes,
                                            int sorted, void* stream) {
-  return canvas_max_bwd<Bf16>(g, feat, pid, canvas, out, n_points, C,
-                              segments, scratch, scratch_bytes, sorted,
-                              stream);
+  return canvas_max_bwd<Bf16, false>(g, feat, pid, canvas, out, n_points,
+                                     C, segments, scratch, scratch_bytes,
+                                     sorted, stream);
+}
+
+extern "C" int scatter_max_bwd_f32(const void* g, const void* feat,
+                                   const void* pid, const void* canvas,
+                                   void* out, long long n_points, int C,
+                                   long long segments, void* scratch,
+                                   long long scratch_bytes, int sorted,
+                                   void* stream) {
+  return canvas_max_bwd<float, true>(g, feat, pid, canvas, out, n_points, C,
+                                     segments, scratch, scratch_bytes, sorted,
+                                     stream);
+}
+
+extern "C" int scatter_max_bwd_bf16(const void* g, const void* feat,
+                                    const void* pid, const void* canvas,
+                                    void* out, long long n_points, int C,
+                                    long long segments, void* scratch,
+                                    long long scratch_bytes, int sorted,
+                                    void* stream) {
+  return canvas_max_bwd<Bf16, true>(g, feat, pid, canvas, out, n_points, C,
+                                    segments, scratch, scratch_bytes, sorted,
+                                    stream);
 }

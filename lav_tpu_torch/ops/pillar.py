@@ -15,7 +15,12 @@ exactly 0 (LAV's zero canvas).  Both of lav_tpu's routes are here:
     lav_tpu's `mode="drop"` scatter drops it.  The decoration sums keep
     that id as an in-range dump row.  lav_tpu sorts the points first, a
     TPU tactic for its scatters; the sort changes only the order of the
-    f32 decoration sums.
+    f32 decoration sums.  Its gradient (`ScatterMax`) is lav_tpu's, the
+    VJP of `zeros.at[pid].max(feat, mode="drop")`: kernel
+    `scatter_max_bwd` on the card, `scatter_max_bwd_plain` on the CPU,
+    which split a cell's gradient among its tied points as the train
+    route does and count the zero the canvas starts from as one more tie
+    where the cell's max is 0.
   use_pallas=True (`BENCH_PALLAS=1` in lav_tpu's bench): each item has its
     own dump slot in the decoration sums (pid + b * (ny*nx+1)), and the
     canvas is kernel `pillar_scatter_max` (NEG-init, NEG -> 0), the port
@@ -24,7 +29,8 @@ exactly 0 (LAV's zero canvas).  Both of lav_tpu's routes are here:
     carry NEG, to the dump slots; here they get an id outside the canvas
     and are dropped, which gives the same canvas.  In bf16 NEG is -1e30
     rounded to bf16, and the canvas compares in bf16, as the Pallas kernel
-    does.
+    does.  lav_tpu cannot differentiate this route, and neither can the
+    port: `PallasEvalMax`'s backward raises.
 
 Train mode (lav_tpu's train=True route, `ops/pillar.py:507-522`): the
 decoration as in the production route and outside the gradient (lav_tpu's
@@ -152,49 +158,79 @@ def tie_count(n, dtype):
     return torch.clamp(n, max=int(2 / torch.finfo(dtype).eps)).to(dtype)
 
 
-def _share(g, n, tie):
+def _share(g, n, tie, zero_init: bool = False):
     """g * (1 / n) where `tie`, else 0; n the tie counts (int64), the
     reciprocal and the product in g's dtype (each an f32 value rounded once
-    in bf16)."""
+    in bf16).  With `zero_init` the product is taken everywhere, with a
+    factor of 0 where no tie, as JAX's VJP of `zeros.at[].max` takes it:
+    a NaN or inf in g gives NaN to the points of its row that do not tie."""
     n = torch.where(tie, n, torch.ones_like(n))
-    share = g * (1.0 / tie_count(n, g.dtype).float()).to(g.dtype)
-    return torch.where(tie, share, torch.zeros_like(share))
+    rcp = (1.0 / tie_count(n, g.dtype).float()).to(g.dtype)
+    if zero_init:
+        return g * torch.where(tie, rcp, torch.zeros_like(rcp))
+    return torch.where(tie, g * rcp, torch.zeros_like(g))
 
 
-def pillar_scatter_max_bwd_plain(g, feat, pid, canvas):
+def _ties(feat, canvas, rows, zero_init: bool, ok=True):
+    """(tie, n) of points `feat` in rows `rows` (int64, in range), those
+    of `ok` only: whether each equals its row's max, and how many points of
+    the row do, plus one where that max is 0 with `zero_init` (the zero
+    operand ties there)."""
+    tie = (feat == canvas[rows]) & ok
+    n = torch.zeros(canvas.shape, dtype=torch.int64, device=canvas.device)
+    n = n.index_add_(0, rows, tie.long())
+    if zero_init:
+        n = n + (canvas == 0).long()
+    return tie, n[rows]
+
+
+def pillar_scatter_max_bwd_plain(g, feat, pid, canvas, zero_init=False):
     """Plain version of kernel `pillar_scatter_max_bwd`: g (S, C) the
     gradient of `pillar_scatter_max(feat, pid, S)`'s output `canvas`, all
     f32 or all bf16 -> d_feat (N, C) in that dtype: g[pid[p], c] * (1 / n)
     where feat[p, c] equals canvas[pid[p], c] and n points of the row tie
     there (`tie_count`: at most 256 in bf16), else 0; dropped ids give
-    0."""
+    0.  With `zero_init`, `scatter_max_bwd_plain`."""
     S, C = canvas.shape
     ok = (pid >= 0) & (pid < S)
     s = torch.where(ok, pid.long(), torch.zeros_like(pid.long()))
-    tie = ok[:, None] & (feat == canvas[s])
-    n = torch.zeros((S, C), dtype=torch.int64, device=canvas.device)
-    n = n.index_add_(0, s, tie.long())[s]
-    return _share(g[s], n, tie)
+    tie, n = _ties(feat, canvas, s, zero_init, ok[:, None])
+    out = _share(g[s], n, tie, zero_init)
+    return torch.where(ok[:, None], out, torch.zeros_like(out))
 
 
-def pillar_scatter_max_bwd_sorted_plain(g, feat, canvas, offsets, idx):
-    """Plain version of kernel `pillar_scatter_max_bwd` on the forward's
-    sort (`read_canvas_sort`: row r's points are idx[offsets[r]:
-    offsets[r + 1]]): the ties counted row by row over the sorted points;
-    the same function as `pillar_scatter_max_bwd_plain`, exactly."""
+def scatter_max_bwd_plain(g, feat, pid, canvas):
+    """Plain version of kernel `scatter_max_bwd`: the gradient of the
+    zero-init canvas max `scatter_max(feat, pid, S)` as `jax.vjp` of
+    lav_tpu's `jnp.zeros((S, C)).at[pid].max(feat, mode="drop")` gives it.
+    `pillar_scatter_max_bwd_plain`'s split, where a row's max of 0 counts
+    the zero it started from as one more tie (n = ties + 1 there, through
+    `tie_count`: at most 256 in bf16), and g times 0 at the points that do
+    not tie (NaN where g is NaN or inf); dropped ids give 0."""
+    return pillar_scatter_max_bwd_plain(g, feat, pid, canvas, zero_init=True)
+
+
+def pillar_scatter_max_bwd_sorted_plain(g, feat, canvas, offsets, idx,
+                                        zero_init=False):
+    """Plain version of kernel `pillar_scatter_max_bwd` (with `zero_init`,
+    `scatter_max_bwd`) on the forward's sort (`read_canvas_sort`: row r's
+    points are idx[offsets[r]:offsets[r + 1]]): the ties counted row by
+    row over the sorted points; the same function as the plain version,
+    exactly."""
     S, C = canvas.shape
     rows = torch.repeat_interleave(
         torch.arange(S, device=canvas.device), offsets.diff())
-    tie = feat[idx] == canvas[rows]
-    n = torch.zeros((S, C), dtype=torch.int64, device=canvas.device)
-    n = n.index_add_(0, rows, tie.long())[rows]
+    tie, n = _ties(feat[idx], canvas, rows, zero_init)
     out = feat.new_zeros(feat.shape)
-    out[idx] = _share(g[rows], n, tie)
+    out[idx] = _share(g[rows], n, tie, zero_init)
     return out
 
 
-_BWD_ENTRY = {torch.float32: native.ENTRIES["pillar_scatter_max_bwd_f32"],
-              torch.bfloat16: native.ENTRIES["pillar_scatter_max_bwd_bf16"]}
+_BWD_ENTRY = {
+    (False, torch.float32): native.ENTRIES["pillar_scatter_max_bwd_f32"],
+    (False, torch.bfloat16): native.ENTRIES["pillar_scatter_max_bwd_bf16"],
+    (True, torch.float32): native.ENTRIES["scatter_max_bwd_f32"],
+    (True, torch.bfloat16): native.ENTRIES["scatter_max_bwd_bf16"]}
 
 
 def pillar_scatter_max_bwd(g, feat, pid, canvas, sort=None):
@@ -207,8 +243,20 @@ def pillar_scatter_max_bwd(g, feat, pid, canvas, sort=None):
     Without it the kernel sorts the points itself first, as the forward
     does.  CPU tensors take the plain version (on the sort, where one is
     given); on the card any other dtype raises."""
+    return _canvas_bwd("pillar_scatter_max_bwd", False, g, feat, pid, canvas,
+                       sort)
+
+
+def scatter_max_bwd(g, feat, pid, canvas, sort=None):
+    """Kernel `scatter_max_bwd` (contract of `scatter_max_bwd_plain`), the
+    gradient of `scatter_max`, as `pillar_scatter_max_bwd` takes its
+    arguments; `sort` is `scatter_max(..., keep_sort=True)`'s scratch."""
+    return _canvas_bwd("scatter_max_bwd", True, g, feat, pid, canvas, sort)
+
+
+def _canvas_bwd(name, zero_init, g, feat, pid, canvas, sort):
     dev = feat.get_device()
-    entry = _BWD_ENTRY.get(feat.dtype)
+    entry = _BWD_ENTRY.get((zero_init, feat.dtype))
     if not (feat.is_cuda and entry is not None and g.dtype is feat.dtype
             and canvas.dtype is feat.dtype and pid.dtype is torch.int32
             and feat.dim() == 2 and pid.shape == feat.shape[:1]
@@ -219,13 +267,14 @@ def pillar_scatter_max_bwd(g, feat, pid, canvas, sort=None):
             and all(t.is_contiguous() for t in (g, feat, pid, canvas))):
         if feat.device.type == "cpu":
             if sort is None:
-                return pillar_scatter_max_bwd_plain(g, feat, pid, canvas)
+                return pillar_scatter_max_bwd_plain(g, feat, pid, canvas,
+                                                    zero_init)
             return pillar_scatter_max_bwd_sorted_plain(
                 g, feat, canvas, *read_canvas_sort(
                     sort, feat.shape[0], feat.shape[1], canvas.shape[0],
-                    feat.element_size()))
+                    feat.element_size()), zero_init)
         raise ValueError(
-            f"pillar_scatter_max_bwd: g {g.dtype} {tuple(g.shape)}, feat "
+            f"{name}: g {g.dtype} {tuple(g.shape)}, feat "
             f"{feat.dtype} {tuple(feat.shape)}, pid {pid.dtype} "
             f"{tuple(pid.shape)}, canvas {canvas.dtype} "
             f"{tuple(canvas.shape)}: one dtype, f32 or bf16 (C even), int32 "
@@ -239,7 +288,7 @@ def pillar_scatter_max_bwd(g, feat, pid, canvas, sort=None):
           and sort.numel() >= nbytes and sort.is_contiguous()):
         scratch = sort
     else:
-        raise ValueError(f"pillar_scatter_max_bwd: sort {sort.dtype} "
+        raise ValueError(f"{name}: sort {sort.dtype} "
                          f"{tuple(sort.shape)} on {sort.device}: the "
                          f"forward's uint8 scratch of {nbytes} bytes")
     out = torch.empty_like(feat)
@@ -266,6 +315,43 @@ class CanvasMax(torch.autograd.Function):
         feat, pid, canvas, sort = ctx.saved_tensors
         return (pillar_scatter_max_bwd(g.contiguous(), feat, pid, canvas,
                                        sort), None, None)
+
+
+class ScatterMax(torch.autograd.Function):
+    """`scatter_max(feat, pid, S)`, the production eval route's canvas,
+    with lav_tpu's gradient to feat (`scatter_max_bwd` on the forward's
+    sort, in feat's dtype); pid gets none."""
+
+    @staticmethod
+    def forward(ctx, feat, pid, num_segments: int):
+        canvas, sort = scatter_max(feat, pid, num_segments, keep_sort=True)
+        ctx.save_for_backward(feat, pid, canvas, sort)
+        return canvas
+
+    @staticmethod
+    def backward(ctx, g):
+        feat, pid, canvas, sort = ctx.saved_tensors
+        return (scatter_max_bwd(g.contiguous(), feat, pid, canvas, sort),
+                None, None)
+
+
+class PallasEvalMax(torch.autograd.Function):
+    """`pillar_scatter_max(feat, pid, S)` on the use_pallas=True eval
+    route, which lav_tpu cannot differentiate (`jax.grad` through
+    `pillar_scatter_max_pallas` fails): the forward runs, the backward
+    raises."""
+
+    @staticmethod
+    def forward(ctx, feat, pid, num_segments: int):
+        return pillar_scatter_max(feat, pid, num_segments)
+
+    @staticmethod
+    def backward(ctx, g):
+        raise RuntimeError(
+            "PointPillar: the use_pallas=True eval route (kernel "
+            "pillar_scatter_max, lav_tpu's pillar_scatter_max_pallas) has no "
+            "gradient, as in lav_tpu; differentiate the production route "
+            "(use_pallas=False) or train mode")
 
 
 # csrc/pillar_scatter_max.cu's kTile, kHot, kGroupPoints and kAlign
@@ -460,11 +546,14 @@ _K3_ENTRY = {("max", torch.bfloat16): native.ENTRIES["scatter_max_bf16"],
              ("add", torch.float32): native.ENTRIES["scatter_add_f32"]}
 
 
-def scatter_max(feat, pid, num_segments: int):
+def scatter_max(feat, pid, num_segments: int, keep_sort: bool = False):
     """Kernel `scatter_max` (contract of `scatter_max_plain`), the canvas
-    of the production route.  CPU tensors take the plain version."""
+    of the production route.  CPU tensors take the plain version.  With
+    `keep_sort`, -> (canvas, sort), as `pillar_scatter_max` returns them,
+    for `scatter_max_bwd`."""
     return _scatter("scatter_max", _K3_ENTRY.get(("max", feat.dtype)),
-                    scatter_max_plain, feat, pid, num_segments, canvas=True)
+                    scatter_max_plain, feat, pid, num_segments, canvas=True,
+                    keep_sort=keep_sort)
 
 
 def scatter_add(feat, pid, num_segments: int):
@@ -525,9 +614,7 @@ class PointPillar(nn.Module):
             feat = getattr(self, f"linear_{i}")(feat)
             feat = F.relu(getattr(self, f"bn_{i}")(feat, mask=keep))
         C = feat.shape[-1]
-        if self.training:
-            canvas = CanvasMax.apply(feat.contiguous(), canvas_pid, B * G)
-        else:
-            kernel = pillar_scatter_max if use_pallas else scatter_max
-            canvas = kernel(feat.contiguous(), canvas_pid, B * G)
+        canvas_max = (CanvasMax if self.training else
+                      PallasEvalMax if use_pallas else ScatterMax)
+        canvas = canvas_max.apply(feat.contiguous(), canvas_pid, B * G)
         return canvas.reshape(B, ny, nx, C)

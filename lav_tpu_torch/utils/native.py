@@ -21,10 +21,10 @@ launch.
 `LAUNCHES` counts, per kernel, the wrapper calls that launched it on the
 card; `reset_launches` sets every count to 0.  A source may hold several
 kernels (`pillar_scatter_max.cu` holds the NEG-init and the zero-init
-canvas max), and a kernel's forms are counted apart where a path must show
-which one ran (`crop_shared_q8_s2d`, `pillar_scatter_max_bf16`, and the
-bf16 backward kernels `crop_shared_bwd_bf16`,
-`pillar_scatter_max_bwd_bf16`).
+canvas max and their gradients), and a kernel's forms are counted apart
+where a path must show which one ran (`crop_shared_q8_s2d`,
+`pillar_scatter_max_bf16`, and the bf16 backward kernels
+`crop_shared_bwd_bf16`, `pillar_scatter_max_bwd_bf16`).
 """
 
 from __future__ import annotations
@@ -85,11 +85,14 @@ ENTRIES = {e.symbol: e for e in (
       for dt, k in (("f32", "crop_shared_bwd"),
                     ("bf16", "crop_shared_bwd_bf16"))),
     # g, feat, pid, canvas, d_feat, n_points, C, segments, the canvas max's
-    # scratch and its bytes, whether it holds the forward's sort
+    # scratch and its bytes, whether it holds the forward's sort; the
+    # NEG-init canvas' gradient, then the zero-init one's
     *(Entry("pillar_scatter_max", f"pillar_scatter_max_bwd_{dt}", k,
             (_P,) * 5 + (_LL, _I, _LL, _P, _LL, _I))
       for dt, k in (("f32", "pillar_scatter_max_bwd"),
                     ("bf16", "pillar_scatter_max_bwd_bf16"))),
+    *(Entry("pillar_scatter_max", f"scatter_max_bwd_{dt}", "scatter_max_bwd",
+            (_P,) * 5 + (_LL, _I, _LL, _P, _LL, _I)) for dt in ("f32", "bf16")),
     # x, w, w_scale, x_scale, bias (or NULL), out, plan (int[591])
     *(Entry("conv2d_int8", f"conv2d_int8_{dt}", "conv2d_int8", (_P,) * 7)
       for dt in ("bf16", "f32")),

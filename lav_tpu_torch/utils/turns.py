@@ -15,12 +15,18 @@ process on one card.  The outputs of every build must equal the first build's
 (`torch.equal`); then each build is timed in turns (first, ..., last,
 last, ..., first), host-paced and device-only, as `chip_smoke.py` times.
 
-crop: `csrc/crop_shared.cu`'s int8 and plain entries at the production
-inputs (16 egos, bf16) and at the f32 agent's (4 egos, f32 source).
-`--diagnose` adds three builds of DIR's source with a text change each
-(the crop kernel as it was before the tiled int8 kernel): its stores kept
-behind a test that never holds, one tap read instead of four, every tap
-read from one address.  Their outputs differ, and are not compared.
+crop: `csrc/crop_shared.cu`'s int8 entries at the production inputs (16
+egos, bf16) and at the f32 agent's (4 egos, f32 source), and its plain
+entries at their four shape families: the f32 agent's crops (4 egos,
+160x160x384, 16 crops of 96x96) in f32 and in bf16, the BEV trainer's (64
+x 320x320x9 f32, 5 crops of 192x192) and the distillation step's two C = 9
+calls (4 x 320x320x9, 4 + 1 crops of 192x192) in f32 and in bf16, each
+launched with the wrapper's `vec` (16 bytes of channels where C and the
+pointers allow, else 1).  `--diagnose` adds a build of this tree's
+source in which each piece of the plain forms' kernel (`crop_tiled`)
+computes its pixel's setup again (`PLAIN_DIAGNOSE`); `--variants` builds
+with one of its sizes changed (`PLAIN_VARIANTS`: the tile, blocks an
+SM).  Every build's outputs must equal the parent's.
 
 conv: `csrc/conv2d_int8.cu` on the variant routes' transposed convs and
 two production shapes, each build launched with the plan of its own
@@ -75,23 +81,31 @@ from lav_tpu_torch.utils import native
 
 OUT = native.BUILD_DIR / "turns"
 
-# the crop kernel before the tiled int8 kernel (crop_shared_kernel's loop)
-_STORE = "      reinterpret_cast<Vec<OutT, V>*>(op)[c] = r;"
-_TAPS = ["    const T* r01 = r00 + C;",
-         "    const T* r10 = r00 + (size_t)W * C;",
-         "    const T* r11 = r10 + C;"]
-DIAGNOSE = {
-    "no stores": [(_STORE, """      if constexpr (kQ8) {
-        int chk = 0;
-        for (int i = 0; i < V; ++i) chk += (int)r.v[i];
-        if (chk == H * 100003) reinterpret_cast<Vec<OutT, V>*>(op)[c] = r;
-      } else {
-        reinterpret_cast<Vec<OutT, V>*>(op)[c] = r;
-      }""")],
-    "one tap": [(t, t.split("=")[0] + "= r00;") for t in _TAPS],
-    "fixed tap": [(t, t.split("=")[0] + "= r00;") for t in _TAPS] + [(
-        "    const T* r00 = s + ((size_t)((int)y0f) * W + (int)x0f) * C;",
-        "    const T* r00 = s;")],
+# crop_tiled (the plain forms) with each piece reading its pixel's grid
+# point and computing its setup again, as the parent's threads did
+# (`--diagnose`)
+_READ = "    const int2 q = pq[pix];\n    if (q.y >= 0) {\n"
+PLAIN_DIAGNOSE = {"setup per piece": [(_READ, """    int2 q = make_int2(0, -1);
+    {
+      const int y = ty0 + pix / TX, x = tx0 + pix % TX;
+      float4 wv;
+      if (y < Ho && x < Wo) {
+        pixel_setup<T>(g, (reinterpret_cast<uintptr_t>(grid) & 7) == 0,
+                       y * Wo + x, H, W, C, wv, q.x);
+        q.y = wv.x < 0.0f ? -1 : (y * Wo + x) * C;
+      }
+    }
+    if (q.y >= 0) {
+""")]}
+# crop_tiled with one of its sizes changed (`--variants`)
+_SIZES = "constexpr int kTileX = 32, kNarrowTy = 8;"
+_ROWS = "TY = V == 1 ? kNarrowTy : 1"
+PLAIN_VARIANTS = {
+    "16-pixel-wide tiles": [(_SIZES, _SIZES.replace("32", "16"))],
+    "narrow: 4 rows": [(_SIZES, _SIZES.replace("8;", "4;"))],
+    "vector: 8 rows": [(_ROWS + ",", _ROWS.replace(": 1", ": 8") + ","),
+                       (_ROWS + ";", _ROWS.replace(": 1", ": 8") + ";")],
+    "8 blocks an SM": [("kPlainBlocks = 4;", "kPlainBlocks = 8;")],
 }
 
 
@@ -145,16 +159,61 @@ def in_turns(runs: dict, label: str, compare=None,
     return times
 
 
-def crop(parent: Path, diagnose: bool) -> dict:
+def _crop_families(dev):
+    """The plain forms' shape families: {label: [(src, grid), ...]}, the
+    calls timed together."""
+    src = torch.randn((cs.NUM_EGO_TRAIN, 320, 320, 9),
+                      generator=torch.Generator().manual_seed(11))
+    step = cs._student_crop_grids(torch, dev, H=320, ppm=4.0, crop=192)
+    return {
+        "agent f32, 4 egos": [cs._agent_crop_inputs(torch, dev,
+                                                    torch.float32)],
+        "agent bf16, 4 egos": [cs._agent_crop_inputs(torch, dev,
+                                                     torch.bfloat16)],
+        "BEV trainer, 64 x 320x320x9 f32": [cs._bev_crop_inputs(torch, dev)],
+        "the step's C = 9 calls, f32": [(src.to(dev), g) for g in step],
+        "the step's C = 9 calls, bf16": [(src.to(dev, torch.bfloat16), g)
+                                         for g in step]}
+
+
+def _plain_run(lib, calls):
+    """A run of `lib`'s plain entry on each (src, grid) of `calls`, with
+    the wrapper's vec rule, into outputs of its own."""
+    dev = calls[0][0].device
+    launches = []
+    for src, grid in calls:
+        B, H, W, C = src.shape
+        _, K, Ho, Wo, _ = grid.shape
+        symbol = "crop_shared_" + ("bf16" if src.dtype == torch.bfloat16
+                                   else "f32")
+        fn = entry(lib, symbol, native.ENTRIES[symbol].argtypes)
+        out = torch.empty((B, K, Ho, Wo, C), device=dev, dtype=src.dtype)
+        vmax = 16 // src.element_size()
+        vec = vmax if (C % vmax == 0 and src.data_ptr() % 16 == 0
+                       and out.data_ptr() % 16 == 0) else 1
+        launches.append((fn, out, (src.data_ptr(), grid.data_ptr(),
+                                   out.data_ptr(), B, H, W, C, K, Ho, Wo,
+                                   vec)))
+
+    def run():
+        for fn, out, args in launches:
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"crop_shared: cudaError {err}")
+        return [out for _, out, _ in launches]
+    return run
+
+
+def crop(parent: Path, diagnose: bool, with_variants: bool) -> dict:
     libs = {"parent": build("parent crop", parent / "lav_tpu_torch" /
                             "csrc" / "crop_shared.cu"),
             "this tree": build("this crop", native.CSRC_DIR /
                                "crop_shared.cu")}
-    if diagnose:
-        for name, subs in DIAGNOSE.items():
-            libs[f"parent, {name}"] = build(
-                f"parent {name}", parent / "lav_tpu_torch" / "csrc" /
-                "crop_shared.cu", subs)
+    variants = {}
+    for name, subs in {**(PLAIN_DIAGNOSE if diagnose else {}),
+                       **(PLAIN_VARIANTS if with_variants else {})}.items():
+        variants[f"this tree, {name}"] = build(
+            f"this {name}", native.CSRC_DIR / "crop_shared.cu", subs)
     dev = torch.device("cuda")
     res = {}
     for dtype, E in ((torch.bfloat16, cs.NUM_EGO_PROD),
@@ -164,21 +223,16 @@ def crop(parent: Path, diagnose: bool) -> dict:
         B, H, W, C = src.shape
         _, K, Ho, Wo, _ = grid.shape
         dt = "bf16" if dtype == torch.bfloat16 else "f32"
-        for form in ("q8", "q8_s2d", "plain"):
-            symbol = f"crop_shared_{dt}" if form == "plain" else \
-                f"crop_shared_{form}_{dt}"
+        for form in ("q8", "q8_s2d"):
+            symbol = f"crop_shared_{form}_{dt}"
             shape = ((B, K, Ho // 2, Wo // 2, 4 * C) if form == "q8_s2d"
                      else (B, K, Ho, Wo, C))
             runs = {}
             for name, lib in libs.items():
-                if form == "plain" and name.startswith("parent, "):
-                    continue
                 fn = entry(lib, symbol, native.ENTRIES[symbol].argtypes)
-                out = torch.empty(shape, device=dev, dtype=src.dtype
-                                  if form == "plain" else torch.int8)
-                ptrs = [src.data_ptr(), grid.data_ptr(), out.data_ptr()]
-                if form != "plain":
-                    ptrs.append(inv.data_ptr())
+                out = torch.empty(shape, device=dev, dtype=torch.int8)
+                ptrs = [src.data_ptr(), grid.data_ptr(), out.data_ptr(),
+                        inv.data_ptr()]
 
                 def run(fn=fn, out=out, ptrs=ptrs):
                     err = fn(*ptrs, B, H, W, C, K, Ho, Wo,
@@ -189,8 +243,16 @@ def crop(parent: Path, diagnose: bool) -> dict:
                     return out
                 runs[name] = run
             label = f"crop {symbol}, {E} egos"
-            res[label] = in_turns(runs, label, ["parent", "this tree"])
+            res[label] = in_turns(runs, label)
         del src, grid
+        torch.cuda.empty_cache()
+    for label, calls in _crop_families(dev).items():
+        runs = {name: _plain_run(lib, calls)
+                for name, lib in {**libs, **variants}.items()}
+        label = f"crop_shared {label}"
+        res[label] = in_turns(runs, label, agree=lambda a, b: all(
+            torch.equal(x, y) for x, y in zip(a, b)))
+        del calls, runs
         torch.cuda.empty_cache()
     return res
 
@@ -557,11 +619,12 @@ def main(argv=None) -> int:
     ap.add_argument("--parent", required=True, type=Path,
                     help="the other checkout's root")
     ap.add_argument("--diagnose", action="store_true",
-                    help="crop, scatter: add the parent kernel's "
+                    help="crop: add this tree's plain crop with one "
+                    "choice undone; scatter: the parent kernel's "
                     "diagnostic builds")
     ap.add_argument("--variants", action="store_true",
-                    help="scatter, train: add this tree's kernels with one "
-                    "choice changed in each build")
+                    help="crop, scatter, train: add this tree's kernels "
+                    "with one choice changed in each build")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("turns: no card", file=sys.stderr)
@@ -569,7 +632,8 @@ def main(argv=None) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
-    res = (crop(args.parent, args.diagnose) if args.kernel == "crop"
+    res = (crop(args.parent, args.diagnose, args.variants)
+           if args.kernel == "crop"
            else scatter(args.parent, args.diagnose, args.variants)
            if args.kernel == "scatter" else train(args.parent, args.variants)
            if args.kernel == "train" else conv(args.parent))

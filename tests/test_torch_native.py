@@ -76,6 +76,25 @@ def test_the_bf16_backward_entries_are_declared_beside_the_f32_ones():
         assert (f32.kernel, bf16.kernel) == (kernel, f"{kernel}_bf16")
         assert sigs[f"{kernel}_bf16"] == sigs[f"{kernel}_f32"]
 
+def test_the_zero_init_backward_entries_take_the_neg_init_ones_arguments():
+    """scatter_max_bwd_{f32,bf16}, the gradient of the zero-init canvas
+    max (the production eval route), live beside pillar_scatter_max_bwd in
+    the canvas max's source, take its arguments (the sort of
+    scatter_max's own scratch among them) and are counted as one kernel,
+    as scatter_max's two forms are."""
+    sigs = _c_signatures()
+    neg = native.ENTRIES["pillar_scatter_max_bwd_f32"]
+    for dt in ("f32", "bf16"):
+        e = native.ENTRIES[f"scatter_max_bwd_{dt}"]
+        assert (e.source, e.kernel) == ("pillar_scatter_max",
+                                        "scatter_max_bwd")
+        assert e.argtypes == neg.argtypes
+        assert sigs[f"scatter_max_bwd_{dt}"] == sigs[
+            "pillar_scatter_max_bwd_f32"]
+    assert native.ENTRIES["scatter_max_f32"].kernel == "scatter_max"
+    assert "scatter_max_bwd" in native.LAUNCHES
+
+
 class _StubLib:
     """Stands in for a loaded kernel library: each symbol is a C function
     pointer to a Python callback that reads every argument as a 64-bit

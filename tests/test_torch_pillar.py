@@ -292,9 +292,9 @@ def test_point_pillar_canvas_drops_invalid_points(use_pallas, monkeypatch):
     name = "pillar_scatter_max" if use_pallas else "scatter_max"
     real, seen = getattr(P, name), []
 
-    def spy(feat, pid, num_segments):
+    def spy(feat, pid, num_segments, **kw):
         seen.append((pid.clone(), num_segments))
-        return real(feat, pid, num_segments)
+        return real(feat, pid, num_segments, **kw)
 
     monkeypatch.setattr(P, name, spy)
     with torch.no_grad():
