@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases build,pillar,crop,conv_int8,gather,variants
     python3 chip_smoke.py --phases build,train_kernels,train
     python3 chip_smoke.py --phases build,crop,privileged
+    python3 chip_smoke.py --phases build,cli
 
 Phases, each printing its own line and raising on failure:
   build   the card's name and power limit; nvcc builds every kernel
@@ -141,6 +142,23 @@ Phases, each printing its own line and raising on failure:
           more: the p50 step over steps 2-7, samples/s, peak memory and
           one profiled step's device busy time, launches, host syncs, top
           kernels and top host ops
+  cli     the staged training CLI (lav_tpu.train.cli, bev -> seg -> bra ->
+          paint -> full) through cli.main on synthetic data dirs at full
+          width, built in a temporary directory (configs/v2.yaml, and
+          configs/v1.yaml for seg; 320x320 BEV maps, 288x256 cameras,
+          40,000-point sweeps): bev --v2 B = 32 (crop_shared twice a
+          step), seg B = 32 and bra --v2 B = 8 (no kernel of the port),
+          the paint pass on the in-memory episode with the seg stage's
+          checkpoint, then full --v2 B = 4 on 120,000-point samples in f32
+          (TRAIN_KERNELS every step) with the bev stage's checkpoint as
+          bev_model_dir (its teacher equal to it), in bf16
+          (TRAIN_BF16_KERNELS), and resumed from the f32 run's epoch-1
+          checkpoint (params, optimizer state and schedule count equal to
+          the snapshot's; then its second epoch); 2 epochs of 2 steps each
+          stage: launches, finite metrics, checkpoints, batch dtypes
+          (lav_tpu's after device_put), step p50 over steps 2+, samples/s,
+          loader wait a step, peak memory, seconds to build the data, and
+          the host's ms to build a sample with its top functions
   profile (only when asked for) one warm tick of the agent under
           torch.profiler (--config f32, production, variants, both = the
           first two, or all): device time
@@ -168,7 +186,7 @@ AGENT_KERNELS = ("crop_shared", "pillar_scatter_max", "scatter_add")
 VARIANT_ABSENT = ("crop_shared_q8", "scatter_max", "pillar_scatter_max")
 ALL_PHASES = ("build", "crop", "pillar", "scatter", "conv_int8", "gather",
               "agent", "production", "variants", "train_kernels", "train",
-              "privileged")
+              "privileged", "cli")
 EXTRA_PHASES = ("profile",)
 NUM_EGO = 4
 MAX_POINTS = 8192
@@ -2745,6 +2763,329 @@ def phase_privileged(ctx):
         torch.cuda.empty_cache()
 
 
+# phase privileged's batches and phase train's, the bev stage's cut to 32:
+# its numpy loader builds a 320x320 sample in ~0.4 s on the card's host
+CLI_BATCH = {"bev": 32, "seg": B_SEG, "bra": B_BRA, "full": NUM_EGO_TRAIN}
+# steps an epoch; each stage runs 2 epochs, and each logs (a host sync) at
+# each epoch's first step.  The bev stage stays at 2: its loader takes
+# 6-11 s a step, so its p50 is a spot reading of 3 steps
+CLI_STEPS = {"bev": 2, "seg": 8, "bra": 8, "full": 8}
+CLI_LIDAR = 40000           # points a sweep: three stacked sweeps fill most
+                            # of v2's 120,000 slots
+CLI_HW = (288, 256)         # train/privileged.py SEG_HW: the seg, brake and
+                            # paint paths' camera images
+CLI_TEL_HW = (288, 480)     # the telephoto (lav_tpu/agent/carla_adapter.py
+                            # TEL_RGB); the brake dataset cuts its bottom 96
+
+
+def _cli_cfgs():
+    """(v2, v1) configurations of the repository's configs/."""
+    import os
+
+    from lav_tpu_torch.config import load_config
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "configs")
+    return (load_config(os.path.join(root, "v2.yaml")),
+            load_config(os.path.join(root, "v1.yaml")))
+
+
+def _cli_yaml(path, cfg, **kw):
+    import dataclasses
+
+    import yaml
+
+    cfg = cfg.replace(**kw)
+    with open(path, "w") as f:
+        yaml.safe_dump({f.name: getattr(cfg, f.name)
+                        for f in dataclasses.fields(cfg)}, f)
+    return path
+
+
+def _cli_data(root, cfg2, cfg1):
+    """Synthetic data dirs at full width, one a stage, each with the frames
+    for CLI_STEPS[stage] batches of its stage's CLI_BATCH samples: bev (v2:
+    num_plan + 2 * 32 frames, the 320x320 BEV grid; its cameras and sweeps
+    unread and small), seg (v1, 5 cameras a frame), bra (v2, its telephoto
+    rewritten at CLI_TEL_HW), and the full stage's episode of
+    CLI_LIDAR-point sweeps, kept in memory for the paint pass.  Returns
+    ({stage: seconds to build}, the full stage's episodes)."""
+    import os
+
+    import numpy as np
+
+    from lav_tpu_torch.data.lavpack import convert_episode
+    from lav_tpu_torch.data.store import _encode_png, make_synthetic_episode
+
+    bev_hw = (cfg2.ny, cfg2.nx)
+    ncam = len(cfg1.camera_yaws)
+    frames = {stage: CLI_STEPS[stage] * CLI_BATCH[stage]
+                     for stage in ("bev", "seg", "bra", "full")}
+    frames["seg"] = -(-frames["seg"] // ncam)
+    secs, full = {}, None
+    for i, (stage, n) in enumerate(frames.items()):
+        t0 = time.perf_counter()
+        small = stage == "bev"
+        n += (cfg1 if stage == "seg" else cfg2).num_plan
+        ep = make_synthetic_episode(
+            n_frames=n, n_lidar=64 if stage != "full" else CLI_LIDAR,
+            img_hw=(8, 8) if small else CLI_HW, bev_hw=bev_hw, seed=i)
+        if stage == "bra":
+            rng = np.random.default_rng(i)
+            for t in range(n):
+                ep.store.put(f"tel_rgb_{t:05d}".encode(), _encode_png(
+                    rng.integers(0, 255, (*CLI_TEL_HW, 3), dtype=np.uint8)))
+                ep.store.put(f"tel_sem_{t:05d}".encode(), _encode_png(
+                    rng.integers(0, 23, CLI_TEL_HW, dtype=np.uint8)))
+        os.makedirs(os.path.join(root, stage))
+        if stage == "full":
+            full = [ep]
+        else:
+            convert_episode(ep, os.path.join(root, stage, "ep0.lavpack"))
+        secs[stage] = time.perf_counter() - t0
+    return secs, full
+
+
+def _sample_profile(label, ds, n: int = 2):
+    """The host's ms to build a sample of `ds` (the last n, which stack
+    every sweep, under cProfile) and the functions with the most self
+    time."""
+    import cProfile
+    import os
+    import pstats
+
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    for i in range(len(ds) - n, len(ds)):
+        ds[i]
+    prof.disable()
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    rows = sorted(pstats.Stats(prof).stats.items(), key=lambda kv: -kv[1][2])
+    log("cli", f"{label}: {ms:.1f} ms to build a sample on the host "
+        f"(cProfile on, the last {n}); self ms a sample: " + "; ".join(
+            f"{fn} ({os.path.basename(path)}:{line}) {st[2] * 1e3 / n:.1f}"
+            for (path, line, fn), st in rows[:6]))
+
+
+def _same_state(a, b) -> bool:
+    """Two state trees equal, tensor for tensor (torch.equal on the CPU)."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a.cpu(), b.cpu())
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_state(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(_same_state, a, b))
+    return a == b
+
+
+def _cli_run(ctx, label, argv):
+    """cli.main(argv) with every launch count set to 0 just before and read
+    just after; checks the metrics logged and the checkpoints; prints the
+    stage's step p50 (steps 2 and later, CUDA events), samples/s (the last
+    epoch, host clock, loader waits included), ms a step waited on the
+    loader, and peak memory.  Returns (run, launches)."""
+    import json
+    import os
+
+    import numpy as np
+    import torch
+
+    from lav_tpu_torch.data.loader import device_dtype
+    from lav_tpu_torch.train import cli
+    from lav_tpu_torch.utils import native
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    native.reset_launches()
+    run = cli.main(argv + ["--device", ctx["device"]])
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in native.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    name = run.stage.name
+    save = os.path.join(argv[argv.index("--save-dir") + 1], name)
+    recs = [json.loads(ln) for ln in open(os.path.join(save,
+                                                       "metrics.jsonl"))]
+    losses = [(r["loss"], r["grad_norm"]) for r in recs]
+    if run.step_ms:
+        logged = [i for i in range(run.it - len(run.step_ms), run.it)
+                  if i % CLI_STEPS[run.stage.name] == 0]
+        if ([r["step"] for r in recs] != logged
+                or not np.isfinite(np.array(losses)).all()):
+            raise AssertionError(f"cli {label}: metrics {losses}")
+        if not os.path.exists(os.path.join(save, f"{name}_{run.epoch}")):
+            raise AssertionError(f"cli {label}: no checkpoint "
+                                 f"{name}_{run.epoch}")
+        # the samples' dtypes: lav_tpu's after device_put
+        want = {k: str(device_dtype(np.asarray(v).dtype)) for k, v in
+                run.stage.dataset[0].items()}
+        got = {k: str(v).replace("torch.", "") for k, v in
+               run.batch_dtypes.items()}
+        if got != want:
+            raise AssertionError(f"cli {label}: batch dtypes {got}, want "
+                                 f"{want}")
+    B = int(argv[argv.index("--batch-size") + 1])
+    later = run.step_ms[1:]
+    p50 = statistics.median(later) if later else float("nan")
+    wait = statistics.mean(run.wait_ms[1:]) if later else float("nan")
+    n, secs = run.epochs[-1] if run.epochs else (0, float("nan"))
+    line = (f"{label}: {len(run.step_ms)} steps to it {run.it}, B={B}; "
+            f"dtypes {got if run.step_ms else '-'}; step ms "
+            f"{[round(t, 1) for t in run.step_ms]}; p50 over steps 2+ "
+            f"{p50:.1f} ms; {n / secs:.2f} samples/s over the last epoch "
+            f"({secs:.2f} s); loader wait {wait:.1f} ms a step after the "
+            f"first ({run.wait_ms[:1]} ms for the first); peak memory "
+            f"{peak:.2f} GiB on {ctx.get('smi', '?')}; launches {launches}; "
+            f"(loss, grad_norm) {losses}")
+    log("cli", line)
+    if run.step_ms:
+        _sample_profile(label, run.stage.dataset)
+    ctx.setdefault("cli_numbers", {})[label] = dict(
+        B=B, step_ms=run.step_ms, wait_ms=run.wait_ms, epochs=run.epochs,
+        peak_gib=peak, launches=launches)
+    return run, launches
+
+
+def phase_cli(ctx):
+    """The staged training CLI (bev -> seg -> bra -> paint -> full) through
+    cli.main on synthetic data dirs at full width."""
+    import os
+    import tempfile
+
+    import torch
+
+    from lav_tpu_torch.data import lavpack
+    from lav_tpu_torch.data.lavpack import convert_episode
+    from lav_tpu_torch.models.rgb import SegModel
+    from lav_tpu_torch.train import checkpoints as CK
+    from lav_tpu_torch.train.paint import run_paint
+
+    t0 = time.perf_counter()
+    lavpack.build()
+    log("cli", f"g++ built {lavpack.LIB_PATH} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    cfg2, cfg1 = _cli_cfgs()
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        secs, full_eps = _cli_data(os.path.join(tmp, "data"), cfg2, cfg1)
+        log("cli", "seconds to build the data: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in secs.items()))
+        ck = os.path.join(tmp, "ck")
+        yml = {stage: _cli_yaml(os.path.join(tmp, f"{stage}.yaml"),
+                                cfg1 if stage == "seg" else cfg2,
+                                data_dir=os.path.join(tmp, "data", stage))
+               for stage in ("bev", "seg", "bra")}
+
+        def argv(stage, cfg_path, save, *extra):
+            return [stage, "--config-path", cfg_path, "--batch-size",
+                    str(CLI_BATCH[stage]), "--num-epoch", "2",
+                    "--num-per-log", str(CLI_STEPS[stage]), "--save-dir",
+                    os.path.join(ck, save), *extra]
+
+        def count(launches):
+            for k, v in launches.items():
+                counts[k] = counts.get(k, 0) + v
+
+        # 1-3: the stage-1 trainers
+        run, launches = _cli_run(ctx, "bev v2", argv("bev", yml["bev"], "bev",
+                                                     "--v2"))
+        count(launches)
+        if (launches.get("crop_shared", 0) < 2 * run.it
+                or launches.get("crop_shared_bwd")):
+            raise AssertionError("the bev stage must launch crop_shared twice "
+                                 "a step and crop_shared_bwd never")
+        bev_ck = os.path.join(ck, "bev", "bev", "bev_2")
+        for stage, extra in (("seg", ()), ("bra", ("--v2",))):
+            run, launches = _cli_run(ctx, f"{stage} {' '.join(extra)}".strip(),
+                                     argv(stage, yml[stage], stage, *extra))
+            if launches:
+                raise AssertionError(f"the {stage} stage launched {launches}; "
+                                     "it runs library convs only")
+        tel = run.stage.dataset[0]["tel_rgb"].shape
+        if tel != (CLI_TEL_HW[0] - cfg2.crop_tel_bottom, CLI_TEL_HW[1], 3):
+            raise AssertionError(f"bra: a telephoto of {tel}")
+        log("cli", f"bra --v2: wide {run.stage.dataset[0]['rgb'].shape}, "
+            f"telephoto {tel} a sample")
+        # 4: paint the full stage's episode in memory with the seg stage's
+        # checkpoint, then pack it
+        t0 = time.perf_counter()
+        seg = CK.load_params(os.path.join(ck, "seg", "seg", "seg_2"),
+                             SegModel(len(cfg2.seg_channels)))
+        n = run_paint(cfg2, seg.to(ctx["device"]), full_eps,
+                      max_points=CLI_LIDAR, rgb_hw=CLI_HW)
+        for i, ep in enumerate(full_eps):
+            convert_episode(ep, os.path.join(tmp, "data", "full",
+                                             f"ep{i}.lavpack"))
+        log("cli", f"paint: {n} frames painted and packed in "
+            f"{time.perf_counter() - t0:.1f} s")
+        del seg
+        full_yml = _cli_yaml(os.path.join(tmp, "full.yaml"), cfg2,
+                             data_dir=os.path.join(tmp, "data", "full"),
+                             bev_model_dir=bev_ck)
+        # 5-6: the full stage in f32 and in bf16, its teacher the bev
+        # stage's
+        teacher = torch.load(bev_ck, map_location="cpu")["params"]
+        for label, save, extra, kernels in (
+                ("full v2", "full", (), TRAIN_KERNELS),
+                ("full v2 bf16", "full_bf16", ("--dtype", "bfloat16"),
+                 TRAIN_BF16_KERNELS)):
+            run, launches = _cli_run(ctx, label, argv(
+                "full", full_yml, save, "--v2", *extra))
+            count(launches)
+            steps = run.it
+            others = [k for k in TRAIN_KERNELS + TRAIN_BF16_KERNELS
+                      if k not in kernels]
+            bwd = [k for k in kernels if "_bwd" in k]
+            if (min(launches.get(k, 0) for k in kernels) < steps
+                    or launches.get(bwd[0]) != 2 * steps
+                    or launches.get(bwd[1]) != steps
+                    or any(launches.get(k) for k in others)):
+                raise AssertionError(f"{label}: launches {launches}, want "
+                                     f"each of {kernels} every step")
+            got = run.stage.models["uniplanner"].bev_planner.state_dict()
+            if not _same_state(got, teacher):
+                raise AssertionError(f"{label}: the teacher is not the bev "
+                                     "stage's checkpoint")
+            ds = run.stage.dataset
+            valid = int(ds[len(ds) - 1]["lidar_valid"].sum())
+            log("cli", f"{label}: a sample of three sweeps holds {valid} "
+                f"valid points of {cfg2.max_lidar_points}")
+            del run
+            torch.cuda.empty_cache()
+        # 7: resume from the f32 run's epoch-1 checkpoint: restored exactly
+        # (a run of no steps), then trained for the second epoch
+        snap_path = os.path.join(ck, "full", "full", "full_1")
+        snap = torch.load(snap_path, map_location="cpu")
+        run, _ = _cli_run(ctx, "full v2 resume (restore)", argv(
+            "full", full_yml, "resume0", "--v2", "--num-epoch", "1",
+            "--resume", snap_path))
+        opt = run.stage.optimizer
+        if not (_same_state(run.stage.models.state_dict(), snap["params"])
+                and _same_state(opt.state_dict(), snap["opt_state"])
+                and opt.scheduler.last_epoch == snap["opt_state"][
+                    "scheduler"]["last_epoch"] == snap["it"]
+                and (run.epoch, run.it) == (snap["epoch"], snap["it"])):
+            raise AssertionError("the resumed run did not restore the "
+                                 "snapshot's params, optimizer state and "
+                                 "schedule count")
+        log("cli", f"resume: params, optimizer state and schedule count "
+            f"({opt.scheduler.last_epoch}) equal the epoch-1 snapshot's")
+        del run, opt
+        run, launches = _cli_run(ctx, "full v2 resumed", argv(
+            "full", full_yml, "resume", "--v2", "--resume", snap_path))
+        count(launches)
+        if run.it != 2 * snap["it"] or min(launches.get(k, 0) for k in
+                                          TRAIN_KERNELS) < snap["it"]:
+            raise AssertionError(f"resumed run: it {run.it}, launches "
+                                 f"{launches}")
+        del run
+        torch.cuda.empty_cache()
+    ctx["launches_cli"] = counts
+
+
 def kernels_line(ctx):
     """Every kernel with its numbers; `launches` counts the main path that
     runs it: the f32 agent for crop_shared and pillar_scatter_max, the
@@ -2816,6 +3157,8 @@ def kernels_line(ctx):
                     f"crop_shared_{key}", {}).items()})
                 rows[-1][f"{key}_launches"] = ctx.get(
                     f"launches_{path}", {}).get(name, 0)
+        if "launches_cli" in ctx:
+            rows[-1]["cli_launches"] = ctx["launches_cli"].get(name, 0)
     return {"kernels": rows}
 
 

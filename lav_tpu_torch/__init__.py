@@ -17,9 +17,14 @@ Package layout:
              head), the BEV planner's and the UniPlanner's inference and
              training forwards, the losses
   agent/     EKF, PID, control, the batched agent tick, setup helper
+  data/      episode stores (in memory, `.lavpack` through the
+             repository's native/lavstore.cpp built with g++, LMDB), the
+             staged datasets and the prefetching loader
   train/     the stage-1 trainers (BEV planner, camera segmentation,
              brake net) and the distillation train step (kernels
-             `crop_shared_bwd`, `pillar_scatter_max_bwd` in its backward)
-  utils/     device selection, kernel build/load, weight conversion, BN
-             state merge
+             `crop_shared_bwd`, `pillar_scatter_max_bwd` in its backward),
+             checkpoints, the staged training CLI (`train/cli.py`) and
+             the paint pass (`train/paint.py`)
+  utils/     device selection, kernel build/load, weight conversion (and
+             LAV state_dicts), BN state merge, the metrics logger
 """

@@ -177,6 +177,18 @@ class LAVConfig:
         return dataclasses.replace(self, **kw)
 
 
+def load_config(path: str) -> LAVConfig:
+    """Load a LAV-format YAML config into a typed LAVConfig; keys that are
+    no field of it are ignored."""
+    import yaml
+
+    with open(path, "r") as f:
+        raw = yaml.safe_load(f)
+    names = {f.name for f in dataclasses.fields(LAVConfig)}
+    kept = {k: v for k, v in raw.items() if k in names}
+    return LAVConfig(**kept)
+
+
 def v1_config(**overrides) -> LAVConfig:
     """The v1 training configuration (reference config.yaml)."""
     return LAVConfig().replace(**overrides)

@@ -19,6 +19,7 @@ from lav_tpu_torch.nn import layers as L
 from lav_tpu_torch.nn.attention import AttentionPool
 from lav_tpu_torch.nn.erfnet import ERFNet
 from lav_tpu_torch.nn.resnet import resnet18, resnet_apply
+from lav_tpu_torch.utils.weights import convert_resnet, load_jax_params
 
 BRAKE_SEG_CHANNELS = 3   # every lav_tpu caller: 3 seg channels + background
 _IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -60,10 +61,18 @@ class SegHead(nn.Module):
 
 
 class BrakeModel(nn.Module):
-    def __init__(self, version: int = 1, gen=None):
+    """`imagenet_sd`: a torchvision resnet18 state_dict (numpy arrays) for
+    the ImageNet-pretrained backbone LAV starts from (lav_tpu's
+    `brake_model_init(imagenet_sd=...)`), converted by
+    `utils/weights.py::convert_resnet`; the other parameters come from
+    `gen` either way."""
+
+    def __init__(self, version: int = 1, gen=None, imagenet_sd=None):
         super().__init__()
         self.version = version
         self.conv_backbone = resnet18(3, gen=gen)
+        if imagenet_sd is not None:
+            load_jax_params(self.conv_backbone, convert_resnet(imagenet_sd))
         self.classifier = L.Linear(1024, 1, gen=gen)
         if version == 2:
             self.attn1 = AttentionPool(512, gen=gen)

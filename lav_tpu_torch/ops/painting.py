@@ -68,7 +68,9 @@ def project_to_camera(rig: CameraRig, lidar_xyz):
 def point_painting(lidar_xyz, sems, rigs: Sequence[CameraRig], valid=None):
     """lidar_xyz (E, N, 3); sems (E, num_cams, H, W, C) probabilities;
     valid (E, N) -> painted (E, N, C).  A point no camera sees gets zeros
-    (it indexes an appended zero row)."""
+    (it indexes an appended zero row), as does one whose index lands past
+    the ego's maps (a rig larger than the maps); one that lands in a later
+    camera's map takes that pixel, as lav_tpu's flat gather does."""
     E, N, _ = lidar_xyz.shape
     _, num_cams, H, W, C = sems.shape
     per_ego = num_cams * H * W
@@ -85,5 +87,9 @@ def point_painting(lidar_xyz, sems, rigs: Sequence[CameraRig], valid=None):
             ok = ok & valid
         uc = u.clamp(0, rig.width - 1).long()
         vc = v.clamp(0, rig.height - 1).long()
-        idx = torch.where(ok, base + i * H * W + vc * W + uc, idx)
+        local = i * H * W + vc * W + uc
+        if rig.height > H or rig.width > W:
+            # past the ego's last map lav_tpu's take(mode="fill") gives 0
+            local = torch.where(local < per_ego, local, zero_row - base)
+        idx = torch.where(ok, base + local, idx)
     return sems_flat[idx]

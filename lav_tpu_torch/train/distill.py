@@ -234,6 +234,82 @@ def adam(models: nn.Module, lr: float = 3e-4) -> torch.optim.Adam:
                             eps=1e-8)
 
 
+class MultiSteps:
+    """optax.MultiSteps(opt, every_k_schedule=every_k) over the torch
+    optimizer `optimizer` and the learning-rate `scheduler` (or None) that
+    counts its updates; the train steps take it in the optimizer's place.
+
+    Each `step()` is a micro-step.  It folds the gradients into their
+    running mean as optax does (acc + (g - acc) / (n + 1)); every
+    `every_k`-th, the optimizer steps on that mean, the scheduler steps
+    once, and the mean starts again from zero.  In between the parameters
+    stay as they are (optax applies zero updates), while a train step still
+    merges the micro-batch's BN statistics and reports its own grad_norm.
+    every_k = 1 is the optimizer and its scheduler alone.  `state_dict`
+    holds all three states, the partial mean among them."""
+
+    def __init__(self, optimizer: torch.optim.Optimizer, every_k: int = 1,
+                 scheduler=None):
+        if every_k < 1:
+            raise ValueError(f"every_k {every_k}: at least 1")
+        self.optimizer, self.every_k, self.scheduler = (optimizer, every_k,
+                                                        scheduler)
+        self.mini_step = 0
+        self.acc: dict = {}     # parameter index -> running mean
+
+    @property
+    def param_groups(self):
+        return self.optimizer.param_groups
+
+    def _params(self):
+        return [p for g in self.optimizer.param_groups for p in g["params"]]
+
+    def zero_grad(self, set_to_none: bool = True):
+        self.optimizer.zero_grad(set_to_none=set_to_none)
+
+    @torch.no_grad()
+    def step(self) -> bool:
+        """One micro-step; True where it applied an update."""
+        if self.every_k > 1:
+            n = self.mini_step
+            params = self._params()
+            for i, p in enumerate(params):
+                if p.grad is None:
+                    continue
+                if i not in self.acc:
+                    self.acc[i] = torch.zeros_like(p.grad)
+                self.acc[i].add_((p.grad - self.acc[i]) / (n + 1))
+            self.mini_step = n + 1
+            if self.mini_step < self.every_k:
+                return False
+            for i, acc in self.acc.items():
+                params[i].grad = acc
+            self.acc, self.mini_step = {}, 0
+        self.optimizer.step()
+        if self.scheduler is not None:
+            self.scheduler.step()
+        return True
+
+    def state_dict(self) -> dict:
+        return dict(optimizer=self.optimizer.state_dict(),
+                    scheduler=(None if self.scheduler is None
+                               else self.scheduler.state_dict()),
+                    every_k=self.every_k, mini_step=self.mini_step,
+                    acc=dict(self.acc))
+
+    def load_state_dict(self, state: dict) -> None:
+        if state["every_k"] != self.every_k:
+            raise ValueError(f"a state of every_k {state['every_k']} for "
+                             f"every_k {self.every_k}")
+        self.optimizer.load_state_dict(state["optimizer"])
+        if self.scheduler is not None:
+            self.scheduler.load_state_dict(state["scheduler"])
+        params = self._params()
+        self.mini_step = state["mini_step"]
+        self.acc = {i: a.to(params[i].device) for i, a in
+                    state["acc"].items()}
+
+
 def make_batch(cfg: LAVConfig, batch_size: int, max_points: int,
                seed: int = 0, device=None) -> dict:
     """A random batch drawn as lav_tpu's `utils/bench_train.py::bench_full`

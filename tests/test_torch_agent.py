@@ -449,9 +449,13 @@ def test_pid_control_and_collide_match_jax(rng):
 def test_port_imports_neither_jax_nor_lav_tpu():
     offenders = []
     paths = sorted((REPO / "lav_tpu_torch").rglob("*.py"))
-    # the training modules are walked too
+    # the training modules, the data layer and the CLI are walked too
     for name in ("train/distill.py", "train/privileged.py",
-                 "models/losses.py", "utils/tree.py", "core/heatmap.py"):
+                 "models/losses.py", "utils/tree.py", "core/heatmap.py",
+                 "data/augment.py", "data/convert.py", "data/datasets.py",
+                 "data/lavpack.py", "data/loader.py", "data/store.py",
+                 "data/transforms.py", "utils/logging.py",
+                 "train/checkpoints.py", "train/cli.py", "train/paint.py"):
         assert REPO / "lav_tpu_torch" / name in paths, name
     for path in paths:
         for node in ast.walk(ast.parse(path.read_text())):
@@ -488,3 +492,9 @@ def test_entry_points_raise_without_a_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         v2_agent_setup(max_points=64)
     assert resolve_device("cpu").type == "cpu"
+    from lav_tpu_torch.train import cli, paint
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["seg"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        paint.main(["--seg-checkpoint", "absent"])
