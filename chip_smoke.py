@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases build,train_kernels,train
     python3 chip_smoke.py --phases build,crop,privileged
     python3 chip_smoke.py --phases build,cli
+    python3 chip_smoke.py --phases build,eval
 
 Phases, each printing its own line and raising on failure:
   build   the card's name and power limit; nvcc builds every kernel
@@ -159,6 +160,24 @@ Phases, each printing its own line and raising on failure:
           (lav_tpu's after device_put), step p50 over steps 2+, samples/s,
           loader wait a step, peak memory, seconds to build the data, and
           the host's ms to build a sample with its top functions
+  eval    the agent's evaluation and deployment entry points, v2_config()
+          in f32 with build_params(seed=0, eval_priors=True), 8192 points a
+          sweep, TF32 off: (1) the 4-ego agent with det_override=True on
+          the route replay's scripted scene (two parked cars, the crossing
+          one; each ego's scene shifted sideways), ticks 1-2 of ego 0
+          against the port on the CPU (controls, plan, other_valid with at
+          least 2 vehicles, their casts; EVAL_ATOL / EVAL_RTOL); (2) two
+          ticks with each skip stage (skip lidar launches no scatter_*,
+          skip planner no crop_shared); (3) evaluate.main: 2 episodes of
+          40 ticks with --video (results.json, 40 AVI frames each, p50 and
+          steps/s), (4) --num-ego 16 --ticks 20 (p50, ego-ticks/s), (5)
+          --routes on a route file the phase writes (a 90 degree turn, a
+          lane change, and their reversed legs), 120 ticks (plan_progress,
+          cmd_hist, collides, collide_releases, p50); (6) LAVAgentCore on
+          40,000-point sweeps cut to 8192, 10 ticks, ticks 1-2 against the
+          CPU, then LAVAgent through stub carla / leaderboard modules with
+          checkpoints saved by train/checkpoints.py, 3 run_steps;
+          crop_shared, scatter_max and scatter_add every tick
   profile (only when asked for) one warm tick of the agent under
           torch.profiler (--config f32, production, variants, both = the
           first two, or all): device time
@@ -186,7 +205,7 @@ AGENT_KERNELS = ("crop_shared", "pillar_scatter_max", "scatter_add")
 VARIANT_ABSENT = ("crop_shared_q8", "scatter_max", "pillar_scatter_max")
 ALL_PHASES = ("build", "crop", "pillar", "scatter", "conv_int8", "gather",
               "agent", "production", "variants", "train_kernels", "train",
-              "privileged", "cli")
+              "privileged", "cli", "eval")
 EXTRA_PHASES = ("profile",)
 NUM_EGO = 4
 MAX_POINTS = 8192
@@ -3086,6 +3105,427 @@ def phase_cli(ctx):
     ctx["launches_cli"] = counts
 
 
+EVAL_KERNELS = ("crop_shared", "scatter_max", "scatter_add")
+EVAL_ATOL = 1e-4            # ego 0 card vs CPU under det_override and in
+EVAL_RTOL = 1e-3            # the adapter's core (phase agent: 4.8e-7)
+EVAL_EPISODES, EVAL_TICKS = 2, 40
+EVAL_EGOS, EVAL_EGO_TICKS = 16, 20
+EVAL_ROUTE_TICKS = 120
+EVAL_SWEEP = 40000          # points in a raw CARLA-like sweep, cut to 8192
+EVAL_SCENE_TICKS = (6, 7)   # the crossing car in front of the ego
+EVAL_OFFSETS = (0.0, -1.0, 1.0, 2.0)   # each ego's lateral scene shift, m
+# the route file the phase writes (leaderboard format): a 90 degree turn
+# and a lateral lane change; evaluate.main adds both reversed
+EVAL_ROUTES = ([(0, 0), (60, 0), (120, 0), (120, 60), (120, 120)],
+               [(0, 0), (60, 0), (85, 3.5), (150, 3.5)])
+
+
+def _eval_launches(native):
+    return {k: native.LAUNCHES[k] for k in EVAL_KERNELS}
+
+
+def _valid_order(aux, W):
+    """Ego 0's valid detection slots sorted by pixel: invalid slots tie at
+    score 0, and top-k picks them in its own order on each device."""
+    import numpy as np
+
+    d = {k: v[0].cpu().numpy() for k, v in aux["dets"].items()}
+    idx = np.flatnonzero(d["valid"])
+    return idx[np.argsort(d["y"][idx].astype(np.int64) * W + d["x"][idx],
+                          kind="stable")]
+
+
+def _eval_ego0(aux, W):
+    """Ego 0's plan, valid other vehicles and their casts, on the host."""
+    order = _valid_order(aux, W)
+    valid = aux["other_valid"][0].cpu().numpy()[order]
+    return order, valid, aux["other_cast_locs"][0].cpu().numpy()[order][valid]
+
+
+def _eval_gt(ctx, models, cpu_models, cfg, native):
+    """Step 1: the 4-ego det_override agent on the scripted scene, card
+    against CPU for ego 0 (ROADMAP C2)."""
+    import numpy as np
+    import torch
+
+    from lav_tpu_torch.agent.agent import build_agent
+    from lav_tpu_torch.agent.evaluate import scene_maps, scripted_scene
+    from lav_tpu_torch.agent.setup import make_obs
+
+    def scenes(t, offsets):
+        out = []
+        for off in offsets:
+            locs, oris, valid = scripted_scene(t)
+            out.append((locs + np.float32([off, 0.0]), oris, valid))
+        return out
+
+    def run(dev, m, E):
+        init, step = build_agent(cfg, num_ego=E, max_points=MAX_POINTS,
+                                 det_override=True, device=dev)
+        state, obs, outs = init(), make_obs(E, MAX_POINTS, device=dev), []
+        for t in EVAL_SCENE_TICKS:
+            obs.update(scene_maps(cfg, scenes(t, EVAL_OFFSETS[:E]), dev))
+            ctrl, state, aux = step(m, state, obs)
+            outs.append((ctrl, aux))
+        return outs
+
+    native.reset_launches()
+    outs = run(ctx["device"], models, NUM_EGO)
+    torch.cuda.synchronize()
+    got = _eval_launches(native)
+    if min(got.values()) < len(EVAL_SCENE_TICKS):
+        raise AssertionError(f"ground-truth ticks missed a kernel: {got}")
+    _check_controls(torch, outs)
+    worst, n_valid = 0.0, []
+    for t, ((cg, ag), (cc, ac)) in enumerate(zip(outs, run("cpu",
+                                                           cpu_models, 1))):
+        og, vg, lg = _eval_ego0(ag, cfg.nx)
+        oc, vc, lc = _eval_ego0(ac, cfg.nx)
+        if not (np.array_equal(vg, vc) and len(og) == len(oc)):
+            raise AssertionError(f"tick {t + 1}: other_valid card {vg} CPU "
+                                 f"{vc}")
+        n_valid.append(int(vg.sum()))
+        pairs = ((_ego0(cg, ag), _ego0(cc, ac)), (lg, lc))
+        for g, c in pairs:
+            np.testing.assert_allclose(g, c, atol=EVAL_ATOL, rtol=EVAL_RTOL,
+                                       err_msg=f"tick {t + 1} ego 0")
+            worst = max(worst, float(np.abs(g - c).max(initial=0.0)))
+    if min(n_valid) < 2:
+        raise AssertionError(f"ego 0 sees {n_valid} valid vehicles")
+    log("eval", f"ground truth: {NUM_EGO} egos x {len(EVAL_SCENE_TICKS)} "
+        f"ticks, launches {got}; ego 0's valid vehicles {n_valid}; its "
+        f"controls, plan and casts match the CPU port: max_abs_err "
+        f"{worst:.3e} (atol {EVAL_ATOL}, rtol {EVAL_RTOL})")
+    return got
+
+
+def _eval_skip(ctx, models, cfg, native):
+    """Step 2: two ticks with each stage skipped."""
+    import torch
+
+    from lav_tpu_torch.agent.agent import SKIP_STAGES, build_agent
+    from lav_tpu_torch.agent.setup import make_obs
+
+    obs = make_obs(NUM_EGO, MAX_POINTS, device=ctx["device"])
+    seen = {}
+    for stage in SKIP_STAGES:
+        init, step = build_agent(cfg, num_ego=NUM_EGO, max_points=MAX_POINTS,
+                                 skip=(stage,), device=ctx["device"])
+        native.reset_launches()
+        outs = _run_ticks(step, models, init(), obs, 2)
+        torch.cuda.synchronize()
+        got = seen[stage] = _eval_launches(native)
+        _check_controls(torch, outs)
+        if stage == "lidar" and got["scatter_max"] + got["scatter_add"]:
+            raise AssertionError(f"skip lidar launched a scatter: {got}")
+        if stage == "planner" and got["crop_shared"]:
+            raise AssertionError(f"skip planner launched crop_shared: {got}")
+    log("eval", f"skip, launches in 2 ticks: {seen}")
+
+
+def _eval_main(label, argv, native):
+    """evaluate.main on `argv`, its launches counted, its seconds split
+    into the synthetic episodes' build, the evaluation loops and the rest
+    (parsing, weights, agent build, results.json)."""
+    import torch
+
+    from lav_tpu_torch.agent import evaluate
+
+    parts = {"episodes": ("_episodes",),
+             "loops": ("evaluate_episode", "evaluate_batched",
+                       "evaluate_routes")}
+    secs = dict.fromkeys(parts, 0.0)
+    held = {n: getattr(evaluate, n) for names in parts.values()
+            for n in names}
+
+    def timed(part, fn):
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                secs[part] += time.perf_counter() - t
+        return run
+
+    for part, names in parts.items():
+        for n in names:
+            setattr(evaluate, n, timed(part, held[n]))
+    native.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        out = evaluate.main(argv + ["--device", "cuda"])
+        torch.cuda.synchronize()
+    finally:
+        for n, fn in held.items():
+            setattr(evaluate, n, fn)
+    total = time.perf_counter() - t0
+    got = _eval_launches(native)
+    log("eval", f"{label}: {total:.1f} s (episodes built "
+        f"{secs['episodes']:.1f} s, evaluation loops {secs['loops']:.1f} s, "
+        f"rest {total - sum(secs.values()):.1f} s), launches {got}")
+    return out, got
+
+
+def _avi_frames(path) -> int:
+    import struct
+
+    with open(path, "rb") as f:
+        data = f.read()
+    return struct.unpack_from("<14I", data, data.index(b"avih") + 8)[4]
+
+
+def _route_xml(path):
+    import math
+
+    lines = ['<?xml version="1.0"?>', "<routes>"]
+    for i, wps in enumerate(EVAL_ROUTES):
+        lines.append(f'<route id="{i}" town="Town05">')
+        for (x0, y0), (x1, y1) in zip(wps, wps[1:] + wps[-1:]):
+            yaw = math.degrees(math.atan2(y1 - y0, x1 - x0))
+            lines.append(f'<waypoint pitch="0.0" roll="0.0" x="{x0}" '
+                         f'y="{y0}" yaw="{yaw:.1f}" z="0.0"/>')
+        lines.append("</route>")
+    with open(path, "w") as f:
+        f.write("\n".join(lines + ["</routes>", ""]))
+    return path
+
+
+def _eval_runs(ctx, tmp, native):
+    """Steps 3-5: evaluate.main's episodes, lockstep egos and routes."""
+    import json
+    import os
+
+    total = {k: 0 for k in EVAL_KERNELS}
+
+    def add(got, at_least):
+        if min(got.values()) < at_least:
+            raise AssertionError(f"a kernel missed a tick: {got}")
+        for k in total:
+            total[k] += got[k]
+
+    out = os.path.join(tmp, "results.json")
+    res, got = _eval_main("episodes", [
+        "--v2", "--episodes", str(EVAL_EPISODES), "--ticks",
+        str(EVAL_TICKS), "--max-points", str(MAX_POINTS), "--out", out,
+        "--video", os.path.join(tmp, "ep.avi")], native)
+    add(got, EVAL_EPISODES * EVAL_TICKS)
+    with open(out) as f:
+        if json.load(f) != res:
+            raise AssertionError("results.json differs from main's result")
+    if set(res) != {"_checkpoint", "values", "labels"}:
+        raise AssertionError(f"results.json keys {sorted(res)}")
+    for e, r in enumerate(res["_checkpoint"]["records"]):
+        lat, meta = r["meta"]["latency"], r["meta"]
+        frames = _avi_frames(os.path.join(tmp, f"ep_{e}.avi"))
+        if (r["status"] != "Completed" or meta["ticks"] != EVAL_TICKS
+                or frames != EVAL_TICKS):
+            raise AssertionError(f"episode {e}: {r['status']}, "
+                                 f"{meta['ticks']} ticks, {frames} frames")
+        log("eval", f"episode {e}: p50 tick {lat['p50_s'] * 1e3:.3f} ms, "
+            f"{lat['steps_per_sec']:.2f} steps/s, plan L2 "
+            f"{meta['expert_plan_l2']:.3f} m, brake agreement "
+            f"{meta['brake_agreement']:.3f}, {frames} video frames; "
+            f"on {ctx.get('smi', '?')}")
+
+    rec, got = _eval_main("lockstep", [
+        "--v2", "--num-ego", str(EVAL_EGOS), "--ticks", str(EVAL_EGO_TICKS),
+        "--max-points", str(MAX_POINTS), "--out", out], native)
+    add(got, EVAL_EGO_TICKS)
+    if rec["nan_controls"] or rec["ticks"] != EVAL_EGOS * EVAL_EGO_TICKS:
+        raise AssertionError(f"lockstep: {rec}")
+    ctx["eval_ego_ticks_per_s"] = rec["ego_steps_per_sec"]
+    log("eval", f"lockstep {EVAL_EGOS} egos x {EVAL_EGO_TICKS} ticks: p50 "
+        f"{rec['latency']['p50_s'] * 1e3:.3f} ms, "
+        f"{rec['ego_steps_per_sec']} ego-ticks/s")
+
+    res, got = _eval_main("routes", [
+        "--v2", "--routes", _route_xml(os.path.join(tmp, "routes.xml")),
+        "--ticks", str(EVAL_ROUTE_TICKS), "--max-points", str(MAX_POINTS),
+        "--out", out], native)
+    recs = res["_checkpoint"]["records"]
+    add(got, sum(r["meta"]["ticks"] for r in recs))
+    if len(recs) != 2 * len(EVAL_ROUTES):
+        raise AssertionError(f"{len(recs)} route records")
+    for r in recs:
+        m = r["meta"]
+        hist = {int(k): v for k, v in m["cmd_hist"].items()}
+        ok = (r["status"] == "Completed" and m["plan_progress"] > 80.0
+              and 3 in hist and len(hist) > 1)
+        log("eval", f"{r['route_id']}: {m['ticks']} ticks, plan_progress "
+            f"{m['plan_progress']}, cmd_hist {hist}, collides "
+            f"{m['collides_ticks']}, collide_releases "
+            f"{m['collide_releases']}, p50 "
+            f"{m['latency']['p50_s'] * 1e3:.3f} ms")
+        if not ok:
+            raise AssertionError(f"route {r['route_id']}: {r}")
+    return total
+
+
+def _carla_stubs():
+    import sys
+    import types
+
+    class VehicleControl:
+        def __init__(self, steer=0.0, throttle=0.0, brake=0.0):
+            self.steer, self.throttle, self.brake = steer, throttle, brake
+
+    class AutonomousAgent:
+        def __init__(self, path_to_conf_file=None):
+            self._global_plan = None
+            self.setup(path_to_conf_file)
+
+        def set_global_plan(self, global_plan_gps, global_plan_world=None):
+            self._global_plan = global_plan_gps
+
+    carla = types.ModuleType("carla")
+    carla.VehicleControl = VehicleControl
+    auto = types.ModuleType("leaderboard.autoagents.autonomous_agent")
+    auto.AutonomousAgent = AutonomousAgent
+    auto.Track = types.SimpleNamespace(SENSORS="SENSORS")
+    mods = {"carla": carla, "leaderboard": types.ModuleType("leaderboard"),
+            "leaderboard.autoagents":
+                types.ModuleType("leaderboard.autoagents"),
+            "leaderboard.autoagents.autonomous_agent": auto}
+    sys.modules.update(mods)
+    return list(mods)
+
+
+def _eval_adapter(ctx, tmp, models, cpu_models, cfg, native):
+    """Step 6: LAVAgentCore on 40,000-point sweeps, card against CPU, then
+    LAVAgent through stub carla / leaderboard modules on checkpoints."""
+    import importlib
+    import os
+    import sys
+
+    import numpy as np
+    import torch
+
+    from lav_tpu_torch.agent import carla_adapter as ca
+    from lav_tpu_torch.agent.demo import build_params
+    from lav_tpu_torch.agent.env import ReplayEnv
+    from lav_tpu_torch.data.store import make_synthetic_episode
+    from lav_tpu_torch.train.checkpoints import save_checkpoint
+
+    env = ReplayEnv(make_synthetic_episode(
+        n_frames=10, n_lidar=EVAL_SWEEP, img_hw=(288, 256),
+        bev_hw=(cfg.ny, cfg.nx), seed=0), cfg, max_points=EVAL_SWEEP)
+    frames = list(env.frames())
+    cores = [ca.LAVAgentCore(cfg, m, device=d) for m, d in
+             ((models, ctx["device"]), (cpu_models, "cpu"))]
+    for core in cores:
+        core.set_global_plan(env.global_plan())
+    native.reset_launches()
+    outs, worst = [], 0.0
+    for t, f in enumerate(frames):
+        args = (f["lidar"], f["rgbs"], f["tel_rgb"], f["gps"], f["compass"],
+                f["speed"])
+        *c, aux = cores[0].run_step(*args)
+        outs.append(c)
+        if t < 2:
+            *cc, auxc = cores[1].run_step(*args)
+            g = np.concatenate([c, aux["plan_locs"][0].cpu().numpy().ravel()])
+            w = np.concatenate([cc, auxc["plan_locs"][0].numpy().ravel()])
+            np.testing.assert_allclose(g, w, atol=EVAL_ATOL, rtol=EVAL_RTOL,
+                                       err_msg=f"adapter tick {t + 1}")
+            worst = max(worst, float(np.abs(g - w).max()))
+    got = _eval_launches(native)
+    if min(got.values()) < len(frames) or not np.isfinite(outs).all():
+        raise AssertionError(f"adapter core: launches {got}, {outs}")
+    log("eval", f"LAVAgentCore: {len(frames)} ticks of {EVAL_SWEEP}-point "
+        f"sweeps (cut to {MAX_POINTS}), launches {got}; ticks 1-2 match "
+        f"the CPU: max_abs_err {worst:.3e}")
+
+    # the checkpoints hold seed-9 weights: setup first builds seed 0, so
+    # only a load makes each of its models differ from `models`
+    names = ("lidar_model", "uniplanner", "seg_model", "bra_model")
+    saved = build_params(cfg, seed=9, eval_priors=True, device="cpu")
+    dirs = {}
+    for name in names:
+        sd = getattr(saved, name).state_dict()
+        tree = (dict(params=sd, opt_state={}, epoch=1, it=1)
+                if name == "lidar_model" else sd)
+        dirs[f"{name}_dir"] = save_checkpoint(
+            os.path.join(tmp, name, "ck.th"), tree)
+    conf = _cli_yaml(os.path.join(tmp, "agent.yaml"), cfg, **dirs)
+    stubs = _carla_stubs()
+    try:
+        mod = importlib.reload(ca)
+        agent = mod.LAVAgent(conf)
+        for name in names:
+            held = getattr(agent.core.models, name).state_dict()
+            seed0 = getattr(models, name).state_dict()
+            want = getattr(saved, name).state_dict()
+            if not all(torch.equal(held[k].cpu(), v)
+                       for k, v in want.items()):
+                raise AssertionError(f"LAVAgent.setup: {name} is not the "
+                                     "checkpoint's")
+            if all(torch.equal(held[k], seed0[k]) for k in want):
+                raise AssertionError(f"LAVAgent.setup: {name} kept the "
+                                     "seed-0 weights")
+        agent.set_global_plan(env.global_plan())
+        rng = np.random.default_rng(0)
+        ctrls = []
+        for t, f in enumerate(frames[:3]):
+            data = {"LIDAR": (t, f["lidar"]), "GPS": (t, np.append(
+                f["gps"], 0.0)), "IMU": (t, np.append(np.zeros(6),
+                                                      f["compass"])),
+                    "EGO": (t, {"speed": float(f["speed"])}),
+                    "TEL_RGB": (t, rng.integers(0, 255, (288, 480, 4),
+                                                dtype=np.uint8))}
+            for i in range(3):
+                data[f"RGB_{i}"] = (t, rng.integers(0, 255, (288, 256, 4),
+                                                    dtype=np.uint8))
+            c = agent.run_step(data, t)
+            ctrls.append((c.steer, c.throttle, c.brake))
+        agent.destroy()
+    finally:
+        for name in stubs:
+            sys.modules.pop(name, None)
+        importlib.reload(ca)
+    if not np.isfinite(ctrls).all():
+        raise AssertionError(f"LAVAgent controls {ctrls}")
+    log("eval", f"LAVAgent through stub carla / leaderboard: setup loaded "
+        f"the four seed-9 checkpoints (each differs from seed 0), 3 "
+        f"run_steps {np.round(ctrls, 4).tolist()}")
+    return got
+
+
+def phase_eval(ctx):
+    import tempfile
+
+    import torch
+
+    from lav_tpu_torch.agent.demo import build_params
+    from lav_tpu_torch.config import v2_config
+    from lav_tpu_torch.utils import native
+
+    cfg = v2_config()
+    models = build_params(cfg, seed=0, eval_priors=True,
+                          device=ctx["device"])
+    cpu_models = build_params(cfg, seed=0, eval_priors=True, device="cpu")
+    steps = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        gt = _eval_gt(ctx, models, cpu_models, cfg, native)
+        steps["ground truth"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _eval_skip(ctx, models, cfg, native)
+        steps["skip"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        runs = _eval_runs(ctx, tmp, native)
+        steps["episodes, lockstep, routes"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        core = _eval_adapter(ctx, tmp, models, cpu_models, cfg, native)
+        steps["adapter"] = time.perf_counter() - t0
+    ctx["launches_evaluator"] = {k: gt[k] + runs[k] + core[k]
+                                 for k in EVAL_KERNELS}
+    torch.cuda.empty_cache()
+    log("eval", f"launches on the phase's paths "
+        f"{ctx['launches_evaluator']}; "
+        "seconds " + ", ".join(f"{k} {v:.1f}" for k, v in steps.items()))
+
+
 def kernels_line(ctx):
     """Every kernel with its numbers; `launches` counts the main path that
     runs it: the f32 agent for crop_shared and pillar_scatter_max, the
@@ -3100,7 +3540,9 @@ def kernels_line(ctx):
     `bev_launches`, the BEV trainer's (3 steps), with its `bev_*` times
     from phase crop, and `step_*` / `step_bf16_*`, its four calls a
     distillation step timed in phase train_kernels with the f32 / bf16
-    step's launches (3 steps)."""
+    step's launches (3 steps).  Every row adds `cli_launches` (phase
+    cli's training run) and `eval_launches` (phase eval's ground-truth
+    ticks, evaluate.main's three runs and the adapter's core)."""
     crop, scatter = ctx.get("crop", {}), ctx.get("scatter", {})
     train = ctx.get("train_kernels", {})
     bwd = ctx.get("scatter_bwd", {})
@@ -3159,6 +3601,9 @@ def kernels_line(ctx):
                     f"launches_{path}", {}).get(name, 0)
         if "launches_cli" in ctx:
             rows[-1]["cli_launches"] = ctx["launches_cli"].get(name, 0)
+        if "launches_evaluator" in ctx:
+            rows[-1]["eval_launches"] = ctx["launches_evaluator"].get(name,
+                                                                      0)
     return {"kernels": rows}
 
 

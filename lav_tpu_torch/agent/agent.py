@@ -21,9 +21,9 @@ compute dtype, so pillar ids come from bf16 coordinates under bf16.
 `use_pallas` picks lav_tpu's pillar route (ops/pillar.py), and
 `s2d_crops` the planner's space-to-depth int8 crops (models/planner.py).
 The models may carry int8 convs (`nn/quant.py`, `agent/setup.py`).
-
-The diagnostic `skip` stages and the `det_override` option of lav_tpu's
-agent are not ported.
+`skip` replaces stages by lav_tpu's dummies (a skipped stage launches
+none of its kernels), and `det_override` feeds ground-truth detection
+maps to the decode in place of the detection heads.
 """
 
 from __future__ import annotations
@@ -109,14 +109,27 @@ def _ego_hull_mask(pts):
     return ~hull
 
 
+SKIP_STAGES = ("seg", "paint", "stack", "brake", "lidar", "planner")
+
+
 def build_agent(cfg: LAVConfig, *, num_ego: int = 1, max_points: int = 0,
                 camera_yaws=(-60, 0, 60), rgb_hw=(288, 256), cam_fov=64,
-                compute_dtype=None, use_pallas: bool = False,
-                s2d_crops: bool = False, device=None):
+                compute_dtype=None, skip=(), use_pallas: bool = False,
+                s2d_crops: bool = False, det_override: bool = False,
+                device=None):
     """Returns (init_state, step) for `num_ego` egos on `device` (default
     `cuda`; raises if no card is present and the CPU was not asked for).
     use_pallas stands for lav_tpu's `BENCH_PALLAS=1`, s2d_crops for its
     `LAV_S2D_CROPS=1`; both default off, as there.
+
+    skip: diagnostic stage names (SKIP_STAGES) replaced by lav_tpu's cheap
+    dummies, to isolate a stage's cost; never for deployment.
+    det_override: the decode reads caller-supplied ground-truth maps in
+    place of the detection heads (LAV's commented-out GT feed, which
+    lav_tpu's route replay uses to drive the planner and the collision
+    forecast with scripted traffic).  Adds obs det_heatmaps (E, 2, H, W)
+    probabilities, det_sizemaps and det_orimaps (E, 2, H, W); the camera
+    and lidar nets still run, since the planner reads their features.
 
     step(models, state, obs) -> (Control, AgentState, aux); models is an
     `AgentModels` on the same device.  obs per tick, each leading with E:
@@ -125,6 +138,10 @@ def build_agent(cfg: LAVConfig, *, num_ego: int = 1, max_points: int = 0,
       gps (E, 2) lat/lon, compass (E,) rad, speed (E,) m/s,
       cmd (E,) int model command, target (E, 2) world-frame goal vector.
     """
+    bad = set(skip) - set(SKIP_STAGES)
+    if bad:
+        raise ValueError(f"skip={tuple(skip)!r}: unknown stages {sorted(bad)}"
+                         f", expected names from {SKIP_STAGES}")
     dev = resolve_device(device)
     cdt = compute_dtype or torch.float32
     E = num_ego
@@ -232,16 +249,23 @@ def build_agent(cfg: LAVConfig, *, num_ego: int = 1, max_points: int = 0,
             dim=1)
         rgbs = obs["rgbs"]
         ncams = rgbs.shape[1]
-        with record_function("agent/seg"):
-            seg_logits = models.seg_model(
-                rgbs.reshape(E * ncams, *rgbs.shape[2:]).to(cdt))
-            sem_prob = torch.softmax(seg_logits.float(), dim=-1)
-            pred_sem = (sem_prob[..., 1:] * (1.0 - sem_prob[..., :1])
-                        ).to(cdt).reshape(E, ncams, *sem_prob.shape[1:3],
-                                          n_sem)
-        with record_function("agent/paint"):
-            painted = point_painting(fused[..., :3], pred_sem, rigs,
-                                     valid=fused_valid)
+        if "seg" in skip:
+            pred_sem = torch.zeros((E, len(rigs), *rgb_hw, n_sem),
+                                   device=dev)
+        else:
+            with record_function("agent/seg"):
+                seg_logits = models.seg_model(
+                    rgbs.reshape(E * ncams, *rgbs.shape[2:]).to(cdt))
+                sem_prob = torch.softmax(seg_logits.float(), dim=-1)
+                pred_sem = (sem_prob[..., 1:] * (1.0 - sem_prob[..., :1])
+                            ).to(cdt).reshape(E, ncams,
+                                              *sem_prob.shape[1:3], n_sem)
+        if "paint" in skip:
+            painted = torch.zeros((E, Pb, n_sem), device=dev)
+        else:
+            with record_function("agent/paint"):
+                painted = point_painting(fused[..., :3], pred_sem, rigs,
+                                         valid=fused_valid)
         fused_painted = torch.cat([fused, painted.float()], dim=-1)
 
         # ---- ring buffer push (skipped on the very first frame) ---------
@@ -262,10 +286,16 @@ def build_agent(cfg: LAVConfig, *, num_ego: int = 1, max_points: int = 0,
         new_count = torch.where(
             push, torch.clamp(state.buf_count + 1, max=num_keep),
             state.buf_count)
-        with record_function("agent/stack"):
-            stacked, stacked_valid = stacked_lidar(
-                lidar_buf, lidar_valid, locs_buf, oris_buf, new_ptr,
-                new_count, loc, ori)
+        if "stack" in skip:
+            d_st = Df + (num_stack if cfg.num_frame_stack > 0 else 0)
+            stacked = torch.zeros((E, Pb * num_stack, d_st), device=dev)
+            stacked_valid = torch.ones((E, Pb * num_stack), dtype=torch.bool,
+                                       device=dev)
+        else:
+            with record_function("agent/stack"):
+                stacked, stacked_valid = stacked_lidar(
+                    lidar_buf, lidar_valid, locs_buf, oris_buf, new_ptr,
+                    new_count, loc, ori)
 
         # ---- command + lane-change suppression --------------------------
         cmd = obs["cmd"].to(torch.int32)
@@ -287,27 +317,51 @@ def build_agent(cfg: LAVConfig, *, num_ego: int = 1, max_points: int = 0,
         nxp = torch.stack([-tx, -ty], dim=-1)
 
         # ---- brake net ---------------------------------------------------
-        with record_function("agent/brake"):
-            wide = torch.cat([rgbs[:, i] for i in range(ncams)], dim=2)
-            pred_bra = models.bra_model(wide.to(cdt),
-                                        obs["tel_rgb"].to(cdt)).float()
+        if "brake" in skip:
+            pred_bra = torch.zeros((E,), device=dev)
+        else:
+            with record_function("agent/brake"):
+                wide = torch.cat([rgbs[:, i] for i in range(ncams)], dim=2)
+                pred_bra = models.bra_model(wide.to(cdt),
+                                            obs["tel_rgb"].to(cdt)).float()
 
         # ---- perception + planning --------------------------------------
-        with record_function("agent/lidar"):
-            feats, hm, size, orim, bev = models.lidar_model(
-                stacked.to(cdt), stacked_valid, use_pallas=use_pallas)
+        if "lidar" in skip:
+            feats = torch.zeros((E, H // 2, W // 2, 6 * cfg.num_features[-1]),
+                                dtype=cdt, device=dev)
+            hm = torch.zeros((E, 2, H, W), device=dev)
+            size = torch.ones((E, 2, H, W), device=dev)
+            orim = torch.ones((E, 2, H, W), device=dev)
+            bev = torch.zeros((E, 3, H, W), device=dev)
+        else:
+            with record_function("agent/lidar"):
+                feats, hm, size, orim, bev = models.lidar_model(
+                    stacked.to(cdt), stacked_valid, use_pallas=use_pallas)
         with record_function("agent/decode"):
+            if det_override:
+                # ground-truth maps are probabilities already: no sigmoid
+                maps = (obs["det_heatmaps"], obs["det_sizemaps"],
+                        obs["det_orimaps"])
+            else:
+                maps = (torch.sigmoid(hm.float()), size.float(), orim.float())
             dets = det_inference(
-                torch.sigmoid(hm.float()), size.float(), orim.float(),
-                pixels_per_meter=cfg.pixels_per_meter, max_det=cfg.max_det,
-                min_score=cfg.det_min_score, ego_xy=ego_px,
-                ego_exclusion_px=2.0)
+                *maps, pixels_per_meter=cfg.pixels_per_meter,
+                max_det=cfg.max_det, min_score=cfg.det_min_score,
+                ego_xy=ego_px, ego_exclusion_px=2.0)
             veh = {k: v[:, 1] for k, v in dets._asdict().items()}  # vehicles
-        with record_function("agent/planner"):
-            ego_plan_locs, ego_cast_cmd_locs, other_cast_locs, \
-                other_cast_cmds, other_valid = uniplanner_infer(
-                    models.uniplanner, cfg, feats, veh, cmd_eff, nxp,
-                    s2d_crops=s2d_crops)
+        if "planner" in skip:
+            T, C, K = cfg.num_plan, cfg.num_cmds, cfg.max_det
+            ego_plan_locs = torch.zeros((E, T, 2), device=dev)
+            ego_cast_cmd_locs = torch.zeros((E, T, 2), device=dev)
+            other_cast_locs = torch.zeros((E, K, C, T, 2), device=dev)
+            other_cast_cmds = torch.zeros((E, K, C), device=dev)
+            other_valid = torch.zeros((E, K), dtype=torch.bool, device=dev)
+        else:
+            with record_function("agent/planner"):
+                ego_plan_locs, ego_cast_cmd_locs, other_cast_locs, \
+                    other_cast_cmds, other_valid = uniplanner_infer(
+                        models.uniplanner, cfg, feats, veh, cmd_eff, nxp,
+                        s2d_crops=s2d_crops)
 
         # lane-change commands drive on the raw cast
         lc_eff = ((cmd_eff == 4) | (cmd_eff == 5))[:, None, None]

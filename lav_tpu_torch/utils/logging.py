@@ -95,6 +95,13 @@ class Logger:
         scalars["grad/global_norm"] = float(np.sqrt(sq))
         return self.log(step, scalars)
 
+    def video_recorder(self, name: str, fps: int = 20):
+        """MJPEG-AVI recorder in the run dir (LAV flushes every evaluation's
+        viz canvases to wandb as a 20-fps video)."""
+        from lav_tpu_torch.utils.video import VideoRecorder
+
+        return VideoRecorder(os.path.join(self.save_dir, name), fps=fps)
+
     def save_file(self, path: str):
         if self.use_wandb:
             import wandb

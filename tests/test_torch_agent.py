@@ -455,7 +455,11 @@ def test_port_imports_neither_jax_nor_lav_tpu():
                  "data/augment.py", "data/convert.py", "data/datasets.py",
                  "data/lavpack.py", "data/loader.py", "data/store.py",
                  "data/transforms.py", "utils/logging.py",
-                 "train/checkpoints.py", "train/cli.py", "train/paint.py"):
+                 "train/checkpoints.py", "train/cli.py", "train/paint.py",
+                 "agent/env.py", "agent/route.py", "agent/routes.py",
+                 "agent/demo.py", "agent/evaluate.py",
+                 "agent/carla_adapter.py", "utils/profiling.py",
+                 "utils/visualization.py", "utils/video.py"):
         assert REPO / "lav_tpu_torch" / name in paths, name
     for path in paths:
         for node in ast.walk(ast.parse(path.read_text())):
@@ -498,3 +502,15 @@ def test_entry_points_raise_without_a_card():
         cli.main(["seg"])
     with pytest.raises(RuntimeError, match="CUDA"):
         paint.main(["--seg-checkpoint", "absent"])
+    from lav_tpu_torch.agent import demo, evaluate
+    from lav_tpu_torch.agent.carla_adapter import LAVAgentCore
+
+    cfg = t_tiny_config()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate.main(["--tiny", "--ticks", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        demo.main(["--tiny", "--ticks", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        demo.build_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LAVAgentCore(cfg, AgentModels(cfg))

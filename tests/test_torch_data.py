@@ -11,7 +11,8 @@ differ), over a few samples drawn in order from two dataset seeds.  The
 loader's batches over two epochs must equal lav_tpu's
 `DataLoader._host_batches`, with the dtypes lav_tpu's steps get from
 `jax.device_put` (x64 off: float64 -> float32, int64 -> int32).  The
-logger's records equal lav_tpu's.
+logger's records, its video recorder's AVI bytes and the agent's viz
+canvases equal lav_tpu's.
 """
 
 import json
@@ -30,6 +31,7 @@ from lav_tpu.data import lavpack as JP
 from lav_tpu.data import loader as JL
 from lav_tpu.data import store as JS
 from lav_tpu.utils.logging import Logger as JLogger
+from lav_tpu.utils.visualization import visualize_agent_tick as j_viz
 from lav_tpu_torch.config import tiny_config
 from lav_tpu_torch.data import convert as TC
 from lav_tpu_torch.data import datasets as TD
@@ -37,6 +39,7 @@ from lav_tpu_torch.data import lavpack as TP
 from lav_tpu_torch.data import loader as TL
 from lav_tpu_torch.data import store as TS
 from lav_tpu_torch.utils.logging import Logger
+from lav_tpu_torch.utils.visualization import visualize_agent_tick
 
 pytestmark = pytest.mark.skipif(shutil.which("g++") is None,
                                 reason="no C++ toolchain for lavstore")
@@ -206,3 +209,30 @@ def test_logger_matches_lav_tpu(tmp_path):
     assert (j1, j2, jl) == (t1, t2, tl)
     assert list(jd) == list(td) == ["hist"]
     assert np.array_equal(jd["hist"], td["hist"])
+
+
+def test_video_recorder_writes_lav_tpu_bytes(tmp_path):
+    """Logger.video_recorder's MJPEG AVI of the agent's viz canvases is
+    lav_tpu's file, byte for byte, and the canvases are lav_tpu's."""
+    rng = np.random.default_rng(4)
+    frames = []
+    for _ in range(3):
+        args = (rng.uniform(-20, 60, (500, 2)),
+                rng.normal(scale=8, size=(6, 2)),
+                rng.normal(scale=8, size=(4, 3, 6, 2)),
+                rng.uniform(size=(4, 3)), rng.uniform(size=4) > 0.3,
+                rng.normal(scale=20, size=2))
+        got, want = visualize_agent_tick(*args), j_viz(*args)
+        np.testing.assert_array_equal(got, want)
+        frames.append(got)
+    paths = []
+    for L, tag in ((JLogger, "jax"), (Logger, "torch")):
+        log = L("t", save_dir=str(tmp_path / tag))
+        rec = log.video_recorder("eval.avi", fps=20)
+        for f in frames:
+            rec.append(f)
+        assert len(rec) == 3
+        paths.append(rec.close())
+        log.close()
+    assert paths[1] == str(tmp_path / "torch" / "eval.avi")
+    assert open(paths[0], "rb").read() == open(paths[1], "rb").read()
