@@ -35,8 +35,9 @@ added into the source's gradient at the tap; the grid gets none.  In bf16
 the weight and each product are rounded to bf16 as in lav_tpu, and the
 sum is taken in f32 and rounded once.  The kernel computes it as a gather (each
 source cell sums the output pixels that reach it, found through an affine
-fit of each crop's grid, `crop_bwd_map` and `crop_bwd_window`), with no
-atomics and in a fixed order.
+fit of each crop's grid, `crop_bwd_map`; a tile of cells tests the pixels
+of its window, `crop_bwd_tile_window`, once), with no atomics and in a
+fixed order.
 """
 
 from __future__ import annotations
@@ -256,20 +257,53 @@ def crop_bwd_map(grid, H: int, W: int):
     return torch.where(ok[:, None], out, bad)
 
 
-def crop_bwd_window(cmap, x, y, Ho: int, Wo: int):
-    """The candidate window of source cell (x, y) (tensors of one shape,
-    broadcast against cmap's crops (n, 8)), as kernel `crop_shared_bwd`'s
-    gather computes it in f32 -> (u0, u1, v0, v1) int64, inclusive and
-    clamped to the crop; empty where u0 > u1 or v0 > v1."""
-    i00, i01, i10, i11, ox, oy, hu, hv = cmap.unbind(-1)
+def _bwd_centre(cmap, x, y):
+    """The centre of source cell (x, y)'s candidate window in each crop of
+    cmap, the fit's inverse at the cell, rounded as the kernel rounds it
+    (each product, then the sum, in f32)."""
+    i00, i01, i10, i11, ox, oy = cmap.unbind(-1)[:6]
     dx, dy = x.float() - ox, y.float() - oy
-    uc, vc = i00 * dx + i01 * dy, i10 * dx + i11 * dy
-    u0 = torch.clamp(torch.ceil(uc - hu), min=0.0)
-    u1 = torch.clamp(torch.floor(uc + hu), max=float(Wo - 1))
-    v0 = torch.clamp(torch.ceil(vc - hv), min=0.0)
-    v1 = torch.clamp(torch.floor(vc + hv), max=float(Ho - 1))
+    return i00 * dx + i01 * dy, i10 * dx + i11 * dy
+
+
+def _bwd_box(cmap, ulo, uhi, vlo, vhi, Ho: int, Wo: int):
+    """The output pixels within (hu, hv) of centres in [ulo, uhi] x [vlo,
+    vhi], clamped to the crop, as int64 (u0, u1, v0, v1)."""
+    hu, hv = cmap[..., 6], cmap[..., 7]
+    u0 = torch.clamp(torch.ceil(ulo - hu), min=0.0)
+    u1 = torch.clamp(torch.floor(uhi + hu), max=float(Wo - 1))
+    v0 = torch.clamp(torch.ceil(vlo - hv), min=0.0)
+    v1 = torch.clamp(torch.floor(vhi + hv), max=float(Ho - 1))
     big = float(max(Ho, Wo) + 1)   # an infinite side, held in int64
     return tuple(torch.clamp(t, -big, big).long() for t in (u0, u1, v0, v1))
+
+
+def crop_bwd_window(cmap, x, y, Ho: int, Wo: int):
+    """The candidate window of source cell (x, y) (tensors of one shape,
+    broadcast against cmap's crops (n, 8)) in f32, as kernel
+    `crop_shared_bwd` rounds it -> (u0, u1, v0, v1) int64, inclusive and
+    clamped to the crop; empty where u0 > u1 or v0 > v1.  Every tap of
+    weight above 0 on the cell lies in it."""
+    uc, vc = _bwd_centre(cmap, x, y)
+    return _bwd_box(cmap, uc, uc, vc, vc, Ho, Wo)
+
+
+# csrc/crop_shared_bwd.cu's kTileX, kTileY: the cells of d_src a block owns
+CROP_BWD_TILE = (4, 4)
+
+
+def crop_bwd_tile_window(cmap, xa, xb, ya, yb, Ho: int, Wo: int):
+    """The candidate window of the tile of source cells [xa, xb] x [ya,
+    yb] (inclusive; tensors broadcast as `crop_bwd_window`'s), as kernel
+    `crop_shared_bwd` computes it in f32: the union of its cells' windows,
+    which is the box of its four corner cells' (each rounded step of a
+    centre is monotone in x and in y, and so are ceil and floor) ->
+    (u0, u1, v0, v1) int64, inclusive and clamped to the crop."""
+    us, vs = zip(*(_bwd_centre(cmap, x, y) for x in (xa, xb)
+                   for y in (ya, yb)))
+    us, vs = torch.stack(us), torch.stack(vs)
+    return _bwd_box(cmap, us.amin(0), us.amax(0), vs.amin(0), vs.amax(0),
+                    Ho, Wo)
 
 
 def crop_shared_bwd(g, grid, H: int, W: int):
@@ -277,11 +311,12 @@ def crop_shared_bwd(g, grid, H: int, W: int):
     the source gradient of `crop_shared`, f32 or bf16 g, as a gather: each
     cell of d_src sums, in a fixed order and in f32, the output pixels
     whose taps reach it, and is written once (so d_src is not zeroed
-    first, and two calls give the same bits).  It finds those pixels
-    through an affine fit of each crop's grid (`crop_bwd_map`, always in
-    f32), as `affine_grid` makes every crop's grid; a grid that is not
-    affine is still right (the fit's largest miss widens the window, up to
-    every output pixel), only slower.  A tap of weight 0 is skipped (it
+    first, and two calls give the same bits).  A tile of CROP_BWD_TILE
+    cells tests each output pixel of its window once; the window comes
+    from an affine fit of each crop's grid (`crop_bwd_map`, always in f32;
+    `crop_bwd_tile_window`), as `affine_grid` makes every crop's grid; a
+    grid that is not affine is still right (the fit's largest miss widens
+    the window, up to every output pixel), only slower.  A tap of weight 0 is skipped (it
     adds g * 0 = 0 for a finite g).  CPU tensors take the plain version;
     on the card any other dtype raises."""
     if g.device.type == "cpu":

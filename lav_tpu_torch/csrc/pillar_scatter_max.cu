@@ -652,9 +652,9 @@ extern "C" int pillar_scatter_max_bf16(const void* feat, const void* pid,
 // inf, as JAX multiplies by its 0 coefficient).  It reads scatter_max's
 // own sort (`keep_sort`), laid out as the NEG-init form's.
 //
-// Bound: bytes.  feat, the gathered canvas and g rows and d_feat, about
-// 4 x 16.8 MB at the distillation step's f32 shapes (4 x 16384 points, 64
-// channels), 0.02 ms at 3.35 TB/s; half that in bf16.
+// Bound: bytes.  feat read and d_feat written, the ids, and the touched
+// canvas and g rows: 61.4 MB at the distillation step's f32 shapes (4 x
+// 16384 points, 64 channels), 0.0183 ms at 3.35 TB/s; 0.0089 in bf16.
 //
 // Design: the ties are counted on the forward's counting sort, in
 // registers; no S x C array, no memset, no atomic.  `scratch` holds the
@@ -666,37 +666,50 @@ extern "C" int pillar_scatter_max_bf16(const void* feat, const void* pid,
 // ints in f32, as 16-bit counts in bf16, whose partials hold 2 bytes a
 // channel; a chunk has at most 8,192 points), so the same scratch serves
 // any number of backward calls.
-//   1. rows (blocks past the hot ones): a group of threads per point k,
-//      a thread a 16-byte piece of the row as in the forward.  As a point,
-//      k writes its own zeros if its id is dropped; as a position of the
-//      sorted list, k walks its row if it is the row's first position and
-//      the row has at most kHot points: it reads the canvas and g piece
-//      once, counts the ties over the row's points, then writes each
-//      point's d_feat piece, one point's loads at a time.  Every element
-//      of d_feat is written once.  The first blocks walk the hot rows'
-//      chunks (the forward's, of `chunk` points, stored in the sort's
-//      meta), kHotInFlight points' loads at a time, and store each chunk's
-//      tie counts, summed over the block, to the partials (C counts a
-//      chunk).  The hot path's registers would be the rows' too: the
-//      kernel is held to 32 (8 blocks an SM), which kept the step's rows
-//      at 0.0301 ms with four loads in flight in the hot chunks (0.0354
-//      without the cap) and took a 5,000-point row from 0.0456 ms (two in
-//      flight) to 0.0403 (f32; PERF.md, `turns.py train --variants`).
+//   1. rows (blocks past the hot ones): a group of threads per sorted
+//      position k, a thread a 16-byte piece of the row as in the forward.
+//      As a point, k writes its own zeros if its id is dropped.  Rows of at
+//      most kHot points, by element type:
+//      - bf16 (max_bwd_points): the group writes the d_feat piece of the
+//        point at position k.  It reads that point's row's offsets, canvas
+//        and g pieces and its own piece, counts the row's ties with
+//        kRowInFlight points' loads at a time, pieces kept packed, and
+//        stores.  Every group runs the same short chain of dependent loads
+//        (index, id, offsets, payloads): no row is walked by one group in
+//        series.  Held to 64 registers (4 blocks an SM); at 32 its pieces
+//        spilled.  On the step's inputs (NVIDIA H100 80GB HBM3, 700 W,
+//        device only) 0.0153 ms where the f32 design took 0.0297 in bf16
+//        and 0.0366 at 32 registers; on the production canvas 0.2110
+//        against 0.3362 (PERF.md, `turns.py train --variants`).
+//      - f32 (max_bwd_rows, the earlier design, faster in f32): the
+//        group at a row's first position reads the canvas and g piece
+//        once, counts the ties over the row's points, then writes each
+//        point's d_feat piece, one point's loads at a time; held to 32
+//        registers (8 blocks an SM).
+//      Every element of d_feat is written once.  The first blocks walk the
+//      hot rows' chunks (the forward's, of `chunk` points, stored in the
+//      sort's meta), kHotInFlight points' loads at a time, and store each
+//      chunk's tie counts, summed over the block, to the partials (C counts
+//      a chunk).
 //   2. hot (the first blocks again): a chunk sums the counts of its row's
 //      chunks and writes its points' d_feat.
 
 namespace {
 
-// points' loads at once in a hot chunk's walks (a row's walks take one:
-// its points are few)
-constexpr int kHotInFlight = 4;
+// points' loads at once in a hot chunk's walks (an f32 row's walks take
+// one: its points are few) and in a bf16 row's tie count
+constexpr int kHotInFlight = 4, kRowInFlight = 2;
 
 // what the backward adds to an element type: its tie count's ceiling and
 // storage in the partials, and a cell's share g * (1 / n)
 template <typename T>
 struct Grad;
+// kWalkRows: the rows kernel, max_bwd_rows (f32: a row's first sorted
+// position walks the row) or max_bwd_points (bf16: each sorted position
+// writes its own point)
 template <>
 struct Grad<float> {
+  static constexpr bool kWalkRows = true;
   using Count = int;
   static constexpr int kMaxCount = 1 << 24;
   __device__ static float share(float g, int n) {
@@ -706,6 +719,7 @@ struct Grad<float> {
 };
 template <>
 struct Grad<Bf16> {
+  static constexpr bool kWalkRows = false;
   using Count = unsigned short;
   static constexpr int kMaxCount = 256;
   __device__ static float round(float x) {
@@ -763,6 +777,30 @@ __device__ __forceinline__ Lanes<T, W> ldl(const BwdArgs<T>& a,
     for (int l = 0; l < Elem<T>::kLanes; ++l)
       x.v[w * Elem<T>::kLanes + l] = Elem<T>::lane(q.w[w], l);
   return x;
+}
+
+// piece j of row r as loaded, and lane i of such a piece widened (a bf16
+// row's count keeps its pieces packed: 4 words where 8 floats spilled)
+template <typename T, int W>
+__device__ __forceinline__ Piece<W> ldp(const BwdArgs<T>& a,
+                                        const uint8_t* base, long long r,
+                                        int j) {
+  const uint8_t* p = base + r * a.row_bytes + j * 4 * W;
+  Piece<W> q;
+  if constexpr (W == 4) {
+    const uint4 t = __ldg(reinterpret_cast<const uint4*>(p));
+    q.w[0] = t.x, q.w[1] = t.y, q.w[2] = t.z, q.w[3] = t.w;
+  } else if constexpr (W == 2) {
+    const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
+    q.w[0] = t.x, q.w[1] = t.y;
+  } else {
+    q.w[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
+  }
+  return q;
+}
+template <typename T, int W>
+__device__ __forceinline__ float lane_of(const Piece<W>& q, int i) {
+  return Elem<T>::lane(q.w[i / Elem<T>::kLanes], i % Elem<T>::kLanes);
 }
 
 // d_feat's piece j of point p; each lane holds a value of the element
@@ -852,38 +890,35 @@ __device__ __forceinline__ void count_ties(const BwdArgs<T>& a, int k,
   }
 }
 
-// 1. blocks [0, hot_blocks): the hot chunks' tie counts; the others a
-// point (and a sorted position) per threadIdx.y
-template <typename T, bool kZero, int W>
-__global__ void __launch_bounds__(kThreads, 8) max_bwd_rows(BwdArgs<T> a) {
-  constexpr int kN = Lanes<T, W>::kN;
-  if ((int)blockIdx.x >= a.hot_blocks) {
-    const int k = ((int)blockIdx.x - a.hot_blocks) * blockDim.y + threadIdx.y;
-    if (k >= a.n) return;
-    const int sp = __ldg(a.pid + k);
-    if (sp < 0 || sp >= a.rows) {  // a dropped point: zeros
-      Lanes<T, W> z;
+// count_ties with the max piece and the points' pieces as loaded (a lane
+// is widened only to be compared)
+template <typename T, int W, int F>
+__device__ __forceinline__ void count_ties_packed(const BwdArgs<T>& a, int k,
+                                                  int end, int j,
+                                                  const Piece<W>& m,
+                                                  int* cnt) {
+  for (; k < end; k += F) {
+    long long p[F];
+    Piece<W> f[F];
 #pragma unroll
-      for (int l = 0; l < kN; ++l) z.v[l] = 0.0f;
-      for (int j = threadIdx.x; j < a.pieces; j += blockDim.x)
-        stl<T, W>(a, k, j, z);
-    }
-    if (a.rows == 0 || k >= a.off(a.rows)) return;
-    const int s = __ldg(a.pid + __ldg(a.idx + k));
-    const int start = a.off(s);
-    if (start != k) return;  // the row's first position walks it
-    const int end = a.off(s + 1);
-    if (end - start > kHot) return;  // a hot row: the hot blocks walk it
-    for (int j = threadIdx.x; j < a.pieces; j += blockDim.x) {
-      const Lanes<T, W> m = ldl<T, W>(a, a.canvas, s, j);
-      const Lanes<T, W> gv = ldl<T, W>(a, a.g, s, j);
-      int cnt[kN] = {};
-      count_ties<T, W, 1>(a, start, end, 1, j, m, cnt);
-      write_shares<T, kZero, W, 1>(a, start, end, 1, j, m, gv, cnt);
-    }
-    return;
+    for (int i = 0; i < F; ++i) p[i] = k + i < end ? __ldg(a.idx + k + i) : -1;
+#pragma unroll
+    for (int i = 0; i < F; ++i)
+      if (p[i] >= 0) f[i] = ldp<T, W>(a, a.feat, p[i], j);
+#pragma unroll
+    for (int i = 0; i < F; ++i)
+      if (p[i] >= 0)
+#pragma unroll
+        for (int l = 0; l < Lanes<T, W>::kN; ++l)
+          cnt[l] += lane_of<T, W>(f[i], l) == lane_of<T, W>(m, l);
   }
-  __shared__ int red[kThreads * kN];
+}
+
+// blocks [0, hot_blocks) of the rows kernels: each hot chunk's tie counts,
+// summed over the block (red: kThreads * kN ints), to the partials
+template <typename T, int W>
+__device__ __forceinline__ void hot_counts(const BwdArgs<T>& a, int* red) {
+  constexpr int kN = Lanes<T, W>::kN;
   const unsigned long long mt = *a.meta;
   const int n_hot = (int)(mt & 0xffffffffu), chunks = (int)(mt >> 32);
   const int chunk = reinterpret_cast<const int*>(a.meta + 1)[0];
@@ -917,6 +952,83 @@ __global__ void __launch_bounds__(kThreads, 8) max_bwd_rows(BwdArgs<T> a) {
       __syncthreads();
     }
   }
+}
+
+// 1. blocks [0, hot_blocks): the hot chunks' tie counts; the others a
+// point (and a sorted position) per threadIdx.y
+template <typename T, bool kZero, int W>
+__global__ void __launch_bounds__(kThreads, 8) max_bwd_rows(BwdArgs<T> a) {
+  constexpr int kN = Lanes<T, W>::kN;
+  if ((int)blockIdx.x >= a.hot_blocks) {
+    const int k = ((int)blockIdx.x - a.hot_blocks) * blockDim.y + threadIdx.y;
+    if (k >= a.n) return;
+    const int sp = __ldg(a.pid + k);
+    if (sp < 0 || sp >= a.rows) {  // a dropped point: zeros
+      Lanes<T, W> z;
+#pragma unroll
+      for (int l = 0; l < kN; ++l) z.v[l] = 0.0f;
+      for (int j = threadIdx.x; j < a.pieces; j += blockDim.x)
+        stl<T, W>(a, k, j, z);
+    }
+    if (a.rows == 0 || k >= a.off(a.rows)) return;
+    const int s = __ldg(a.pid + __ldg(a.idx + k));
+    const int start = a.off(s);
+    if (start != k) return;  // the row's first position walks it
+    const int end = a.off(s + 1);
+    if (end - start > kHot) return;  // a hot row: the hot blocks walk it
+    for (int j = threadIdx.x; j < a.pieces; j += blockDim.x) {
+      const Lanes<T, W> m = ldl<T, W>(a, a.canvas, s, j);
+      const Lanes<T, W> gv = ldl<T, W>(a, a.g, s, j);
+      int cnt[kN] = {};
+      count_ties<T, W, 1>(a, start, end, 1, j, m, cnt);
+      write_shares<T, kZero, W, 1>(a, start, end, 1, j, m, gv, cnt);
+    }
+    return;
+  }
+  __shared__ int red[kThreads * kN];
+  hot_counts<T, W>(a, red);
+}
+
+// 1b. max_bwd_rows' bf16 form: blocks [0, hot_blocks) as there; the others
+// a sorted position per threadIdx.y, which writes its own point's piece
+// from the row's canvas and g pieces and its ties, counted with
+// kRowInFlight points' loads at a time; 64 registers (4 blocks an SM)
+template <typename T, bool kZero, int W>
+__global__ void __launch_bounds__(kThreads, 4) max_bwd_points(BwdArgs<T> a) {
+  constexpr int kN = Lanes<T, W>::kN;
+  if ((int)blockIdx.x >= a.hot_blocks) {
+    const int k = ((int)blockIdx.x - a.hot_blocks) * blockDim.y + threadIdx.y;
+    if (k >= a.n) return;
+    if (const int sp = __ldg(a.pid + k); sp < 0 || sp >= a.rows) {
+      for (int j = threadIdx.x; j < a.pieces; j += blockDim.x)
+        stl<T, W>(a, k, j, Lanes<T, W>{});  // k as a point: dropped
+    }
+    if (a.rows == 0 || k >= a.off(a.rows)) return;
+    const int p = __ldg(a.idx + k);  // k as a sorted position: its point
+    const int s = __ldg(a.pid + p);
+    const int start = a.off(s), end = a.off(s + 1);
+    if (end - start > kHot) return;  // a hot row: the hot blocks write it
+    for (int j = threadIdx.x; j < a.pieces; j += blockDim.x) {
+      const Piece<W> m = ldp<T, W>(a, a.canvas, s, j);
+      const Piece<W> gv = ldp<T, W>(a, a.g, s, j);
+      const Piece<W> f = ldp<T, W>(a, a.feat, p, j);
+      int cnt[kN] = {};
+      count_ties_packed<T, W, kRowInFlight>(a, start, end, j, m, cnt);
+      Lanes<T, W> r;  // write_shares' split, for this point
+#pragma unroll
+      for (int l = 0; l < kN; ++l) {
+        const float ml = lane_of<T, W>(m, l), gl = lane_of<T, W>(gv, l);
+        const int n = cnt[l] + (kZero && ml == 0.0f);
+        r.v[l] = lane_of<T, W>(f, l) == ml
+                     ? (cnt[l] ? Grad<T>::share(gl, n) : 0.0f)
+                     : (kZero ? Grad<T>::round(__fmul_rn(gl, 0.0f)) : 0.0f);
+      }
+      stl<T, W>(a, p, j, r);
+    }
+    return;
+  }
+  __shared__ int red[kThreads * kN];
+  hot_counts<T, W>(a, red);
 }
 
 // 2. the hot chunks' d_feat, from their rows' summed chunk counts
@@ -964,7 +1076,10 @@ void launch_bwd(const BwdArgs<T>& a, int blocks_hot, cudaStream_t st) {
   const dim3 block = rows_block(a.pieces);
   const long long blocks = a.hot_blocks + ((long long)a.n + block.y - 1) /
                                               block.y;
-  max_bwd_rows<T, kZero, W><<<(unsigned)blocks, block, 0, st>>>(a);
+  if constexpr (Grad<T>::kWalkRows)
+    max_bwd_rows<T, kZero, W><<<(unsigned)blocks, block, 0, st>>>(a);
+  else
+    max_bwd_points<T, kZero, W><<<(unsigned)blocks, block, 0, st>>>(a);
   if (blocks_hot > 0)
     max_bwd_hot<T, kZero, W><<<blocks_hot, block, 0, st>>>(a);
 }

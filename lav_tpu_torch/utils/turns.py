@@ -48,19 +48,21 @@ in place of the compare-and-swap loop or atomic; their outputs differ, and
 are not compared.  `--variants` adds builds of this tree's source with one
 of its choices undone (`SCATTER_VARIANTS`); their outputs must equal.
 
-train: the distillation step's two backward kernels, each build launched
-with its own tree's arguments.  `crop_shared_bwd_f32` on the student's
-crops of a step (chip_smoke.py's `_student_crop_grids`, the two calls
-timed as a pair): the parent's into a zeroed d_src (its wrapper zeroed
-it), this tree's with its map scratch; compared within CROP_BWD_RTOL of
-each cell's sum of |g w|, since the parent's atomics add in no fixed
-order.  `pillar_scatter_max_bwd_f32` on the inputs one step hands it
-(chip_smoke.py's `_canvas_bwd_inputs`) and on its hot row of 5,000 points:
-the parent's with its S x C tie counts, this tree's on the forward's sort
-(the step's route) and sorting itself (standalone); compared exactly.
-`--variants` adds builds of this tree's sources with one choice changed
-(`TRAIN_VARIANTS`); a crop variant must equal this tree bit for bit (each
-cell's terms keep their order).
+train: the distillation step's two backward kernels, in f32 and bf16,
+each build launched with the arguments of `native.ENTRIES` (the contracts
+are the parent's).  `crop_shared_bwd_{f32,bf16}` on the student's two
+crop calls of a step (chip_smoke.py's `_student_crop_grids`, timed as a
+pair) at the step's batch (4) and at lav_tpu's default (32); every build
+adds each cell's terms in one fixed order, so all must be `torch.equal`.
+`pillar_scatter_max_bwd_{f32,bf16}` on the inputs one step hands it
+(chip_smoke.py's `_canvas_bwd_inputs`), on those repeated over 32 items,
+and on a hot row of 5,000 points; `scatter_max_bwd_{bf16,f32}` on the
+production tick's canvas (`_agent_scatter_inputs`); each on the forward's
+sort and sorting itself, exact (NaN positions equal).  Each canvas input's
+rows are counted, and each build's time is split by kernel
+(`chip_smoke.device_split`).  `--variants` adds builds of this tree's
+sources with one choice changed (`TRAIN_VARIANTS`), held to the same
+equality.  Each build prints its kernels' registers and spills.
 """
 
 from __future__ import annotations
@@ -72,6 +74,7 @@ import json
 import re
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -125,6 +128,11 @@ def build(name: str, src: Path, subs=()):
     if proc.returncode:
         raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}"
                            f"{proc.stderr}")
+    # ptxas -v: each kernel's registers and spills
+    for m in re.finditer(r"Function properties for (\w+)\n(.*)\n.*?Used "
+                         r"(\d+) registers", proc.stdout + proc.stderr):
+        print(f"[build {name}] {m.group(1)[:90]}: {m.group(3)} registers, "
+              f"{m.group(2).strip()}", flush=True)
     return ctypes.CDLL(str(so))
 
 
@@ -365,29 +373,41 @@ SCATTER_VARIANTS = {
     "hot above 128": [("constexpr int kHot = 64;",
                        "constexpr int kHot = 128;")],
 }
-# this tree's backward kernels with one choice changed: the cells of d_src
-# a gather warp owns (1 x 1), the gather's registers held to 6 blocks an
-# SM (40; not held), the canvas rows kernel's held to 8 blocks an SM (32)
-# and a hot chunk's walks' loads in flight (4)
-_CELLS = "constexpr int kCellsX = 1, kCellsY = 1;"
-_HOT = "constexpr int kHotInFlight = 4;"
+# this tree's backward kernels with one choice changed: the crop
+# gradient's tile (4 x 4 cells a block), its hits in flight (2 in f32, 1 in
+# bf16), the early ask for a hit's g row, the bf16 products' rounding in
+# pairs and the map pass's 1024 threads; the canvas gradient's rows kernel
+# (f32: a row's first sorted position walks the row; bf16: each sorted
+# position its own point), the bf16 rows' register cap (4 blocks an SM:
+# 64) and a bf16 row's loads in flight (2)
+_TILE = "constexpr int kTileX = 4, kTileY = 4;"
+_WALK = "static constexpr bool kWalkRows = "
 TRAIN_VARIANTS = {
-    "2 x 1 cells a warp": ("crop_shared_bwd", [(
-        _CELLS, "constexpr int kCellsX = 2, kCellsY = 1;")]),
-    "1 x 2 cells a warp": ("crop_shared_bwd", [(
-        _CELLS, "constexpr int kCellsX = 1, kCellsY = 2;")]),
-    "2 x 2 cells a warp": ("crop_shared_bwd", [(
-        _CELLS, "constexpr int kCellsX = 2, kCellsY = 2;")]),
-    "6 blocks an SM": ("crop_shared_bwd", [(
-        "__launch_bounds__(kThreads)\n    crop_gather_kernel",
-        "__launch_bounds__(kThreads, 6)\n    crop_gather_kernel")]),
-    "rows not held to 8 blocks an SM": ("pillar_scatter_max", [(
-        "__launch_bounds__(kThreads, 8) max_bwd_rows(",
-        "__launch_bounds__(kThreads) max_bwd_rows(")]),
-    "hot: one load in flight": ("pillar_scatter_max", [(
-        _HOT, "constexpr int kHotInFlight = 1;")]),
-    "hot: two loads in flight": ("pillar_scatter_max", [(
-        _HOT, "constexpr int kHotInFlight = 2;")]),
+    "2 x 2 cells a block": ("crop_shared_bwd", [(
+        _TILE, "constexpr int kTileX = 2, kTileY = 2;")]),
+    "8 x 4 cells a block": ("crop_shared_bwd", [(
+        _TILE, "constexpr int kTileX = 8, kTileY = 4;")]),
+    "two hits in flight": ("crop_shared_bwd", [(
+        "constexpr int kHitsInFlight[2] = {2, 1};",
+        "constexpr int kHitsInFlight[2] = {2, 2};")]),
+    "no early ask for g rows": ("crop_shared_bwd", [(
+        "prefetch_l1(row + o);", "continue;")]),
+    "one rounding a product": ("crop_shared_bwd", [(
+        "if constexpr (V::kBf16 && V::kN % 2 == 0)",
+        "if constexpr (false)")]),
+    "map: 256 threads": ("crop_shared_bwd", [(
+        "constexpr int kMapThreads = 1024;",
+        "constexpr int kMapThreads = 256;")]),
+    "f32: each sorted position its point": ("pillar_scatter_max", [(
+        _WALK + "true;", _WALK + "false;")]),
+    "bf16: a row's first position walks it": ("pillar_scatter_max", [(
+        _WALK + "false;", _WALK + "true;")]),
+    "bf16: rows held to 8 blocks an SM": ("pillar_scatter_max", [(
+        "__launch_bounds__(kThreads, 4) max_bwd_points",
+        "__launch_bounds__(kThreads, 8) max_bwd_points")]),
+    "bf16 row: 4 loads in flight": ("pillar_scatter_max", [(
+        "kHotInFlight = 4, kRowInFlight = 2;",
+        "kHotInFlight = 4, kRowInFlight = 4;")]),
 }
 # the parent's source of each canvas-max entry
 _PARENT_SOURCE = {"scatter_max_bf16": "pillar_scatter",
@@ -502,114 +522,200 @@ def scatter(parent: Path, diagnose: bool, variants: bool) -> dict:
     return res
 
 
-def train(parent: Path, variants: bool) -> dict:
-    from lav_tpu_torch.core.warp import grid_sample_shared_bwd
+def build_many(specs: dict) -> dict:
+    """`build` of each {name: (src, subs)}, one `nvcc` each, all at once."""
+    with ThreadPoolExecutor(max_workers=len(specs) or 1) as pool:
+        futures = {name: pool.submit(build, name, src, subs)
+                   for name, (src, subs) in specs.items()}
+        return {name: f.result() for name, f in futures.items()}
+
+
+def _crop_bwd_run(lib, symbol, calls, H, W):
+    """A run of `lib`'s crop_shared_bwd entry on each (g, grid) of `calls`,
+    with its map scratch, into outputs of its own."""
+    fn = entry(lib, symbol, native.ENTRIES[symbol].argtypes)
+    launches = []
+    for g, grid in calls:
+        B, K, Ho, Wo, C = g.shape
+        out = torch.empty((B, H, W, C), device=g.device, dtype=g.dtype)
+        cmap = torch.empty((B * K, 8), device=g.device)
+        launches.append((out, cmap, (g.data_ptr(), grid.data_ptr(),
+                                     out.data_ptr(), cmap.data_ptr(), B, H,
+                                     W, C, K, Ho, Wo,
+                                     16 // g.element_size())))
+
+    def run():
+        for _, _, args in launches:
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"{symbol}: cudaError {err}")
+        return [out for out, _, _ in launches]
+    return run
+
+
+def _canvas_bwd_run(lib, symbol, g, feat, pid, canvas, sort):
+    """A run of `lib`'s canvas-max backward entry: on the forward's sort
+    where `sort` is given, else sorting itself in a scratch of its own."""
     from lav_tpu_torch.ops.pillar import canvas_scratch_bytes
 
-    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    (N, C), S = feat.shape, canvas.shape[0]
+    fn = entry(lib, symbol, native.ENTRIES[symbol].argtypes)
+    buf = sort if sort is not None else torch.empty(
+        canvas_scratch_bytes(N, C, S, feat.element_size()),
+        dtype=torch.uint8, device=feat.device)
+    out = torch.empty_like(feat)
+
+    def run():
+        err = fn(g.data_ptr(), feat.data_ptr(), pid.data_ptr(),
+                 canvas.data_ptr(), out.data_ptr(), N, C, S, buf.data_ptr(),
+                 buf.numel(), int(sort is not None),
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"{symbol}: cudaError {err}")
+        return out
+    return run
+
+
+def _split(runs: dict, label: str) -> None:
+    """Each run's device-only ms by kernel (`chip_smoke.device_split`)."""
+    for name, run in runs.items():
+        split = cs.device_split(torch, run)
+        print(f"[{label}] {name}: by kernel " + ", ".join(
+            f"{re.split(r'[<(]', k.replace('(anonymous namespace)::', '').replace('void ', ''))[0]} {v:.4f}"
+            for k, v in sorted(split.items(), key=lambda kv: -kv[1]))
+            + " ms", flush=True)
+
+
+def _exact(a, b) -> bool:
+    """Equal, NaN positions included (`torch.equal` is False on NaN)."""
+    try:
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    except AssertionError:
+        return False
+    return True
+
+
+def _tiled_canvas(args, n: int):
+    """The step's canvas inputs (g, feat, pid, canvas, sort) repeated over
+    n batches of items (B x n): each copy's ids moved past the last's
+    rows, dropped ids kept dropped; g drawn anew, the canvas and its sort
+    from this tree's forward."""
+    from lav_tpu_torch.ops.pillar import pillar_scatter_max
+
+    _, feat, pid, canvas, _ = args
+    S = canvas.shape[0]
+    p = pid.long()
+    ok = (p >= 0) & (p < S)
+    pid_n = torch.cat([torch.where(ok, p + i * S, n * S)
+                       for i in range(n)]).to(torch.int32)
+    feat_n = feat.repeat(n, 1)
+    canvas_n, sort_n = pillar_scatter_max(feat_n, pid_n, n * S,
+                                          keep_sort=True)
+    gen = torch.Generator(device=feat.device).manual_seed(14)
+    g = torch.randn(canvas_n.shape, generator=gen, device=feat.device).to(
+        feat.dtype)
+    return g, feat_n, pid_n, canvas_n, sort_n
+
+
+def _canvas_stats(label, feat, pid, S) -> None:
+    """Rows and points of a canvas input: what the backward walks."""
+    p = pid.long()
+    ok = (p >= 0) & (p < S)
+    n = torch.bincount(p[ok], minlength=S)
+    n = n[n > 0]
+    hist = {f"{lo}-{hi}": int(((n >= lo) & (n <= hi)).sum())
+            for lo, hi in ((1, 1), (2, 4), (5, 16), (17, 64), (65, 1 << 30))}
+    print(f"[{label}] {feat.shape[0]} points, {int((~ok).sum())} dropped, "
+          f"{n.numel()} touched rows of {S}, most points a row "
+          f"{int(n.max())}, rows by points {hist}, points in rows above "
+          f"64: {int(n[n > 64].sum())}", flush=True)
+
+
+def train(parent: Path, variants: bool) -> dict:
+    from lav_tpu_torch.ops.pillar import scatter_max
+
     psrc = parent / "lav_tpu_torch" / "csrc"
     dev = torch.device("cuda")
-    res = {}
-
-    # the crop's source gradient, a step's two calls
     here = {src: native.CSRC_DIR / f"{src}.cu"
             for src in ("crop_shared_bwd", "pillar_scatter_max")}
-    crop_libs = {"parent": build("parent crop bwd",
-                                 psrc / "crop_shared_bwd.cu"),
-                 "this tree": build("this crop bwd", here["crop_shared_bwd"])}
-    canvas_libs = {"parent": build("parent canvas max",
-                                   psrc / "pillar_scatter_max.cu"),
-                   "this tree": build("this canvas max",
-                                      here["pillar_scatter_max"])}
+    specs = {"parent crop bwd": (psrc / "crop_shared_bwd.cu", ()),
+             "this crop bwd": (here["crop_shared_bwd"], ()),
+             "parent canvas max": (psrc / "pillar_scatter_max.cu", ()),
+             "this canvas max": (here["pillar_scatter_max"], ())}
     for name, (src, subs) in TRAIN_VARIANTS.items() if variants else ():
+        specs[f"this {name}"] = (here[src], subs)
+    built = build_many(specs)
+    crop_libs = {"parent": built["parent crop bwd"],
+                 "this tree": built["this crop bwd"]}
+    canvas_libs = {"parent": built["parent canvas max"],
+                   "this tree": built["this canvas max"]}
+    for name, (src, _) in TRAIN_VARIANTS.items() if variants else ():
         libs = crop_libs if src == "crop_shared_bwd" else canvas_libs
-        libs[f"this tree, {name}"] = build(f"this {name}", here[src], subs)
+        libs[f"this tree, {name}"] = built[f"this {name}"]
+    res = {}
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    # the crop's source gradient, a step's two calls (K_TRAIN crops, then
+    # the ego's), at the step's batch and at lav_tpu's default
     H = W = 160
-    C = 384
-    grids = cs._student_crop_grids(torch, dev)
-    gen = torch.Generator(device="cpu").manual_seed(8)
-    gs = [torch.randn(tuple(gr.shape[:4]) + (C,), generator=gen).to(dev)
-          for gr in grids]
-    mags = [grid_sample_shared_bwd(g.abs(), gr, H, W)
-            for g, gr in zip(gs, grids)]
-    runs = {}
-    for name, lib in crop_libs.items():
-        zeroed = name == "parent"   # its args: no map; d_src zeroed first
-        fn = entry(lib, "crop_shared_bwd_f32", (P,) * 3 + (I,) * 8 if zeroed
-                   else native.ENTRIES["crop_shared_bwd_f32"].argtypes)
-        outs = [torch.empty((gr.shape[0], H, W, C), device=dev)
-                for gr in grids]
-        maps = [torch.empty((gr.shape[0] * gr.shape[1], 8), device=dev)
-                for gr in grids]
+    gen = torch.Generator(device=dev).manual_seed(8)
+    for B in (cs.NUM_EGO_TRAIN, cs.B_REF):
+        grids = cs._student_crop_grids(torch, dev, B=B)
+        gs = [torch.randn(tuple(gr.shape[:4]) + (384,), generator=gen,
+                          device=dev) for gr in grids]
+        for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            calls = [(g.to(dtype), gr) for g, gr in zip(gs, grids)]
+            symbol = f"crop_shared_bwd_{dt}"
+            runs = {name: _crop_bwd_run(lib, symbol, calls, H, W)
+                    for name, lib in crop_libs.items()}
+            label = f"{symbol}, a step's two calls at B = {B}"
+            res[label] = in_turns(runs, label, agree=same)
+            _split({k: v for k, v in runs.items()
+                    if not k.startswith("this tree, ")}, label)
+            del calls, runs
+            torch.cuda.empty_cache()
+        del gs, grids
+        torch.cuda.empty_cache()
 
-        def run(fn=fn, outs=outs, maps=maps, zeroed=zeroed):
-            for g, gr, out, m in zip(gs, grids, outs, maps):
-                B, K, Ho, Wo, _ = gr.shape
-                if zeroed:
-                    out.zero_()
-                ptrs = (g.data_ptr(), gr.data_ptr(), out.data_ptr()) + (
-                    () if zeroed else (m.data_ptr(),))
-                err = fn(*ptrs, B, H, W, C, K, Ho, Wo, 4,
-                         torch.cuda.current_stream().cuda_stream)
-                if err:
-                    raise RuntimeError(f"crop_shared_bwd_f32: cudaError "
-                                       f"{err}")
-            return outs
-        runs[name] = run
-
-    def close(outs, ref):
-        return all(bool(((a - b).abs() <= cs.CROP_BWD_RTOL * m).all())
-                   for a, b, m in zip(outs, ref, mags))
-
-    label = "crop_shared_bwd_f32, a step's two calls"
-    mine = runs["this tree"]()
-    for name, run in runs.items():
-        if name.startswith("this tree, ") and not all(
-                torch.equal(a, b) for a, b in zip(run(), mine)):
-            raise AssertionError(f"{label}: {name} differs from this tree")
-    res[label] = in_turns(runs, label, agree=close)
-    del gs, grids, mags, runs
-    torch.cuda.empty_cache()
-
-    # the canvas max's gradient: the step's inputs, then a hot row
-    step_args = cs._canvas_bwd_inputs(torch, {"device": "cuda"})
-    hot = [c for c in cs._canvas_bwd_cases(torch, dev)
-           if c[0] == "a hot row of 5000 points"][0]
-    for label, (g, feat, pid, cmax, sort) in (("the step's", step_args),
-                                              (hot[0], hot[1:])):
-        (N, C), S = feat.shape, cmax.shape[0]
+    # the canvas max's gradient: the inputs one step hands it (f32, bf16),
+    # the same at B_REF, a hot row, and the production eval canvas
+    # (scatter_max_bwd, zero-init)
+    cases = []
+    for dt, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        step = cs._canvas_bwd_inputs(torch, {"device": "cuda"}, dtype)
+        e = "pillar_scatter_max_bwd_" + dt
+        cases.append((e, f"the step's, B = {cs.NUM_EGO_TRAIN}", step))
+        cases.append((e, f"the step's x {cs.B_REF // cs.NUM_EGO_TRAIN}, "
+                      f"B = {cs.B_REF}",
+                      _tiled_canvas(step, cs.B_REF // cs.NUM_EGO_TRAIN)))
+        hot = [c for c in cs._canvas_bwd_cases(torch, dev, dtype)
+               if c[0] == "a hot row of 5000 points"][0]
+        cases.append((e, hot[0], hot[1:]))
+    agent = cs._agent_scatter_inputs(torch, {"device": "cuda"})["max"]
+    tick, (feat, pid, S) = [(k, v) for k, v in agent.items()
+                            if k != "tick 1"][0]
+    for dt, f in (("bf16", feat), ("f32", feat.float())):
+        canvas, sort = scatter_max(f, pid, S, keep_sort=True)
+        g = torch.randn((S, f.shape[1]), generator=gen, device=dev).to(
+            f.dtype)
+        cases.append((f"scatter_max_bwd_{dt}", f"production {tick}",
+                      (g, f, pid, canvas, sort)))
+    del agent, feat, pid
+    for symbol, label, (g, feat, pid, canvas, sort) in cases:
+        key = f"{symbol}, {label}"
+        _canvas_stats(key, feat, pid, canvas.shape[0])
         runs = {}
-        for lib_name, lib in canvas_libs.items():
-            for route in (("",) if lib_name == "parent" else
-                          (", on the forward's sort", ", standalone")):
-                name = lib_name + route
-                out = torch.empty_like(feat)
-                if lib_name == "parent":   # its S x C tie counts
-                    fn = entry(lib, "pillar_scatter_max_bwd_f32",
-                               (P,) * 5 + (LL, I, LL, P))
-                    buf = torch.empty((S, C), dtype=torch.int32, device=dev)
-                    args = (buf.data_ptr(),)
-                else:
-                    fn = entry(lib, "pillar_scatter_max_bwd_f32",
-                               native.ENTRIES["pillar_scatter_max_bwd_f32"]
-                               .argtypes)
-                    on_sort = route.endswith("sort")
-                    buf = sort if on_sort else torch.empty(
-                        canvas_scratch_bytes(N, C, S, 4), dtype=torch.uint8,
-                        device=dev)
-                    args = (buf.data_ptr(), buf.numel(), int(on_sort))
-
-                def run(fn=fn, out=out, args=args, buf=buf):
-                    err = fn(g.data_ptr(), feat.data_ptr(), pid.data_ptr(),
-                             cmax.data_ptr(), out.data_ptr(), N, C, S, *args,
-                             torch.cuda.current_stream().cuda_stream)
-                    if err:
-                        raise RuntimeError("pillar_scatter_max_bwd_f32: "
-                                           f"cudaError {err}")
-                    return out
-                runs[name] = run
-        key = f"pillar_scatter_max_bwd_f32, {label}"
-        res[key] = in_turns(runs, key)
+        for name, lib in canvas_libs.items():
+            runs[f"{name}, on the forward's sort"] = _canvas_bwd_run(
+                lib, symbol, g, feat, pid, canvas, sort)
+            runs[f"{name}, standalone"] = _canvas_bwd_run(
+                lib, symbol, g, feat, pid, canvas, None)
+        res[key] = in_turns(runs, key, agree=_exact)
+        _split({k: v for k, v in runs.items() if k.endswith("sort")}, key)
+        del runs
+        torch.cuda.empty_cache()
     return res
 
 

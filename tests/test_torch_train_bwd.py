@@ -5,15 +5,19 @@ on the CPU.
   of a window that `crop_bwd_map` (the plain version of the kernel's
   first pass: an affine fit of each crop's grid, its largest miss and its
   inverse) and `crop_bwd_window` (the window of one cell, rounded as the
-  kernel rounds it) give.  Every tap of weight above 0 of every output
-  pixel must fall in its cell's window: on grids from the port's
-  `crop_theta` and `affine_grid` at rotations over the full circle, at
-  another scale, straddling each border, wholly outside, on a 157 x 163
-  source, and on grids that are not affine (the fit's miss widens the
-  window) or degenerate (every pixel a candidate).  A Python walk of the
-  kernel's gather (crop, then window row, then column) over those windows
-  gives the plain version's gradient within chip_smoke.py's CROP_BWD_RTOL
-  of each cell's sum of |g w| (the summation order differs).
+  kernel rounds it) give; the kernel tests the candidates of a tile of
+  cells once, in the tile's window (`crop_bwd_tile_window`, the union of
+  its cells').  Every tap of weight above 0 of every output pixel must
+  fall in its cell's window and its tile's, and every cell's window in
+  its tile's: on grids from the port's `crop_theta` and `affine_grid` at
+  rotations over the full circle, at another scale, straddling each
+  border, wholly outside, on a 157 x 163 source, and on grids that are
+  not affine (the fit's miss widens the window) or degenerate (every
+  pixel a candidate).  A Python walk of the gather (crop, then window
+  row, then column) over the cells' windows gives the plain version's
+  gradient within chip_smoke.py's CROP_BWD_RTOL of each cell's sum of |g
+  w| (the summation order differs), and a walk of the kernel's tiles gives
+  the cell walk's bits, f32 and bf16.
 * `pillar_scatter_max_bwd` counts ties on the forward's counting sort:
   `canvas_layout` against csrc/pillar_scatter_max.cu's `Layout`, array by
   array; `canvas_sort_plain` laid out as the kernel leaves its scratch
@@ -26,6 +30,7 @@ on the CPU.
 """
 
 import math
+import re
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +41,7 @@ import torch
 import chip_smoke as cs
 from lav_tpu_torch.core import warp
 from lav_tpu_torch.ops import pillar as P
+from lav_tpu_torch.utils import native
 from tests.test_torch_native import _layout_scope
 from tests.test_torch_train_grad import _canvas_case
 from tests.torch_parity import assert_close
@@ -189,17 +195,122 @@ def test_degenerate_crops_take_every_pixel(case):
     _assert_windows_hold_taps(grid, 40, 40)
 
 
-def _gather_walk(g, grid, H, W):
-    """Kernel `crop_shared_bwd`'s gather, walked in Python: each cell sums
-    the hits of each crop's window (row by row), products rounded in f32
-    and added in that order."""
-    B, K, Ho, Wo, C = g.shape
+def test_crop_bwd_tile_is_the_kernel_tile():
+    """CROP_BWD_TILE is csrc/crop_shared_bwd.cu's kTileX x kTileY."""
+    src = (native.CSRC_DIR / "crop_shared_bwd.cu").read_text()
+    assert tuple(int(re.search(rf"\b{name} = (\d+)[,;]", src).group(1))
+                 for name in ("kTileX", "kTileY")) == warp.CROP_BWD_TILE
+
+
+TILE_CASES = ["rotations", "157 x 163", "4 px/m", "1 px/m", "top", "left",
+              "corner", "outside", "bent", "one row", "zero scale", "nan"]
+
+
+def _tile_case(case):
+    """(grid, H, W) of the window tests above, by name."""
+    if case == "rotations":
+        locs = [[(-1) ** i * 3.0, 2.0 - i] for i in range(len(ROTATIONS))]
+        return _grid(40, 40, 24, locs, ROTATIONS), 40, 40
+    if case == "157 x 163":
+        r = np.random.default_rng(7)
+        return (_grid(157, 163, 96, r.uniform(-4, 4, (3, 2)).tolist(),
+                      r.uniform(-math.pi, math.pi, 3).tolist()), 157, 163)
+    if case.endswith("px/m"):
+        ppm = float(case.split()[0])
+        return _grid(40, 40, 24, [[1.0, -2.0], [0.0, 0.5]], [0.4, -2.0],
+                     ppm), 40, 40
+    at = {"top": [9.5, 0.0], "left": [0.0, -9.5], "corner": [9.5, 9.5],
+          "outside": [500.0, -700.0]}.get(case, [0.5, -1.0])
+    grid = _grid(40, 40, 24, [at, [at[0] * 0.95, at[1] * 0.95]],
+                 [0.3, -2.5])
+    if case == "bent":
+        r = np.random.default_rng(3)
+        bend = torch.from_numpy(r.uniform(-1.5, 1.5, grid.shape).astype(
+            np.float32)) * 2 / 39
+        bend[:, :, 0, 0] = bend[:, :, 0, -1] = bend[:, :, -1, 0] = 0
+        grid = grid + bend
+    elif case == "one row":
+        grid = grid[:, :, :1].contiguous()
+    elif case == "zero scale":
+        grid = torch.zeros_like(grid) + 0.1
+    elif case == "nan":
+        grid = grid.clone()
+        grid[0, 0, 3, 4, 0] = float("nan")
+    return grid, 40, 40
+
+
+def _tile_of(x, y, tile, H, W):
+    """The corners (xa, xb, ya, yb) of the tile holding cell (x, y)."""
+    TX, TY = tile
+    xa, ya = x // TX * TX, y // TY * TY
+    return (xa, torch.clamp(xa + TX - 1, max=W - 1), ya,
+            torch.clamp(ya + TY - 1, max=H - 1))
+
+
+@pytest.mark.parametrize("tile", [warp.CROP_BWD_TILE, (8, 8)])
+@pytest.mark.parametrize("case", TILE_CASES)
+def test_tile_windows_hold_every_tap_and_every_cells_window(case, tile):
+    """Every tap of weight above 0 lies in its tile's window (no hit lost),
+    and the tile's window holds each of its cells' windows: at rotations
+    over the full circle, a 157 x 163 source, other scales, across the
+    borders and outside, on a bent grid and on degenerate ones (every
+    pixel a candidate)."""
+    grid, H, W = _tile_case(case)
+    Ho, Wo = grid.shape[2:4]
     cmap = warp.crop_bwd_map(grid, H, W)
+    c, u, v, x, y = _taps(grid, H, W).unbind(-1)
+    u0, u1, v0, v1 = warp.crop_bwd_tile_window(
+        cmap[c], *_tile_of(x, y, tile, H, W), Ho, Wo)
+    assert bool(((u0 <= u) & (u <= u1) & (v0 <= v) & (v <= v1)).all())
+    assert (case == "outside") == (c.numel() == 0)
+    cc, yy, xx = torch.meshgrid(torch.arange(cmap.shape[0]),
+                                torch.arange(H), torch.arange(W),
+                                indexing="ij")
+    cell = warp.crop_bwd_window(cmap[cc], xx, yy, Ho, Wo)
+    box = warp.crop_bwd_tile_window(cmap[cc], *_tile_of(xx, yy, tile, H, W),
+                                    Ho, Wo)
+    empty = (cell[0] > cell[1]) | (cell[2] > cell[3])
+    held = ((box[0] <= cell[0]) & (cell[1] <= box[1]) & (box[2] <= cell[2])
+            & (cell[3] <= box[3]))
+    assert bool((held | empty).all())
+
+
+def _walk_setup(g, grid, H, W):
+    """What both walks read: the map, each output pixel's position, its
+    clamped tap origin, and g by crop."""
+    B, K, Ho, Wo, C = g.shape
     ix = ((grid[..., 0] + 1.0) * 0.5 * (W - 1)).reshape(B * K, Ho, Wo)
     iy = ((grid[..., 1] + 1.0) * 0.5 * (H - 1)).reshape(B * K, Ho, Wo)
     x0 = torch.clamp(torch.floor(ix), 0, W - 2)
     y0 = torch.clamp(torch.floor(iy), 0, H - 2)
-    gk = g.reshape(B * K, Ho, Wo, C)
+    return (warp.crop_bwd_map(grid, H, W), ix, iy, x0, y0,
+            g.reshape(B * K, Ho, Wo, C))
+
+
+def _term(gk, ix, iy, x0, y0, c, v, u, x, y):
+    """The term output pixel (u, v) of crop c adds to cell (x, y), as the
+    kernel's `axpy` forms it (the weight and the product rounded to bf16
+    for a bf16 g), or None where the cell is no tap of weight above 0."""
+    dx, dy = x - int(x0[c, v, u]), y - int(y0[c, v, u])
+    if not (0 <= dx <= 1 and 0 <= dy <= 1):
+        return None
+    wx = torch.clamp(1.0 - torch.abs(ix[c, v, u] - (x0[c, v, u] + dx)),
+                     min=0.0)
+    wy = torch.clamp(1.0 - torch.abs(iy[c, v, u] - (y0[c, v, u] + dy)),
+                     min=0.0)
+    w = (wy * wx).to(gk.dtype).float()
+    if w == 0:
+        return None
+    return (gk[c, v, u].float() * w).to(gk.dtype).float()
+
+
+def _gather_walk(g, grid, H, W):
+    """Kernel `crop_shared_bwd`'s gather walked cell by cell in Python:
+    each cell sums the hits of each crop's window (row by row), terms
+    formed as the kernel forms them and added in f32 in that order -> the
+    f32 sums."""
+    B, K, Ho, Wo, C = g.shape
+    cmap, ix, iy, x0, y0, gk = _walk_setup(g, grid, H, W)
     out = torch.zeros((B, H, W, C))
     ys, xs = torch.meshgrid(torch.arange(H), torch.arange(W), indexing="ij")
     for b in range(B):
@@ -210,38 +321,90 @@ def _gather_walk(g, grid, H, W):
                 for x in range(W):
                     for v in range(int(v0[y, x]), int(v1[y, x]) + 1):
                         for u in range(int(u0[y, x]), int(u1[y, x]) + 1):
-                            dx = x - int(x0[c, v, u])
-                            dy = y - int(y0[c, v, u])
-                            if not (0 <= dx <= 1 and 0 <= dy <= 1):
-                                continue
-                            wx = torch.clamp(1.0 - torch.abs(
-                                ix[c, v, u] - (x0[c, v, u] + dx)), min=0.0)
-                            wy = torch.clamp(1.0 - torch.abs(
-                                iy[c, v, u] - (y0[c, v, u] + dy)), min=0.0)
-                            w = wy * wx
-                            if w != 0:
-                                out[b, y, x] += gk[c, v, u] * w
+                            t = _term(gk, ix, iy, x0, y0, c, v, u, x, y)
+                            if t is not None:
+                                out[b, y, x] += t
     return out
 
 
-def test_the_gather_walk_gives_the_plain_gradient():
+def _tile_walk(g, grid, H, W, tile):
+    """The kernel's walk as its blocks take it: per tile of `tile` cells
+    and crop, the tile's window row by row, each candidate's four taps,
+    each hit added to its cell in f32 -> the f32 sums."""
+    B, K, Ho, Wo, C = g.shape
+    cmap, ix, iy, x0, y0, gk = _walk_setup(g, grid, H, W)
+    out = torch.zeros((B, H, W, C))
+    TX, TY = tile
+    for b in range(B):
+        for ty in range(0, H, TY):
+            for tx in range(0, W, TX):
+                xb, yb = min(tx + TX, W) - 1, min(ty + TY, H) - 1
+                for k in range(K):
+                    c = b * K + k
+                    u0, u1, v0, v1 = (int(t) for t in warp.crop_bwd_tile_window(
+                        cmap[c], torch.tensor(tx), torch.tensor(xb),
+                        torch.tensor(ty), torch.tensor(yb), Ho, Wo))
+                    for v in range(v0, v1 + 1):
+                        for u in range(u0, u1 + 1):
+                            for dy in (0, 1):
+                                for dx in (0, 1):
+                                    x = int(x0[c, v, u]) + dx
+                                    y = int(y0[c, v, u]) + dy
+                                    if not (tx <= x <= xb and ty <= y <= yb):
+                                        continue
+                                    t = _term(gk, ix, iy, x0, y0, c, v, u,
+                                              x, y)
+                                    if t is not None:
+                                        out[b, y, x] += t
+    return out
+
+
+def _walk_case(dtype, C=3):
     """Two items of two crops (one across the border, one outside), 12 x
-    12 from 20 x 20, C = 3: the walk over the windows is within
-    chip_smoke.py's CROP_BWD_RTOL of each cell's sum of |g w| of the plain
-    version."""
+    12 from 20 x 20."""
     r = np.random.default_rng(4)
-    H, crop, C = 20, 12, 3
+    H, crop = 20, 12
     grid = torch.cat([_grid(H, H, crop, [[4.5, -0.5], [200.0, 0.0]],
                             [2.2, 0.0]),
                       _grid(H, H, crop, [[0.3, 0.2], [-1.0, 1.0]],
                             [-0.8, 3.1])])
     g = torch.from_numpy(r.normal(size=(2, 2, crop, crop, C)).astype(
-        np.float32))
+        np.float32)).to(dtype)
+    return g, grid, H
+
+
+def test_the_gather_walk_gives_the_plain_gradient():
+    """The walk over the windows is within chip_smoke.py's CROP_BWD_RTOL
+    of each cell's sum of |g w| of the plain version (C = 3)."""
+    g, grid, H = _walk_case(torch.float32)
     walk = _gather_walk(g, grid, H, H)
     ref = warp.grid_sample_shared_bwd(g, grid, H, H)
     mag = warp.grid_sample_shared_bwd(g.abs(), grid, H, H)
     assert bool(((walk - ref).abs() <= cs.CROP_BWD_RTOL * mag).all())
     assert float(walk[0].abs().max()) > 0 and int((mag == 0).sum()) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tile", [warp.CROP_BWD_TILE, (8, 8)])
+def test_the_tile_walk_gives_the_cell_walks_bits(dtype, tile):
+    """The kernel's tiles add each cell's terms in the order the cell walk
+    adds them (crop, then output row, then column), so the two give the
+    same bits, f32 and bf16 (weights and products rounded to bf16), and
+    the bf16 result, rounded once, is the plain version's within a bf16
+    ulp beyond CROP_BWD_RTOL."""
+    g, grid, H = _walk_case(dtype)
+    tiles = _tile_walk(g, grid, H, H, tile)
+    cells = _gather_walk(g, grid, H, H)
+    assert torch.equal(tiles, cells)
+    assert float(tiles.abs().max()) > 0
+    if dtype == torch.bfloat16:
+        ref = warp.grid_sample_shared_bwd(g, grid, H, H).float()
+        mag = warp.grid_sample_shared_bwd(g.abs().float(), grid, H, H)
+        out = tiles.to(dtype).float()
+        big = torch.maximum(out.abs(), ref.abs()).clamp(min=2.0 ** -126)
+        tol = (cs.CROP_BWD_RTOL * mag + cs.CROP_BWD_BF16_ULPS
+               * torch.exp2(torch.floor(torch.log2(big)) - 7))
+        assert bool(((out - ref).abs() <= tol).all())
 
 
 # ---- the canvas max's sort ----
