@@ -21,6 +21,7 @@ lav_tpu's host syncs; no other is added.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import os
@@ -260,9 +261,11 @@ def scene_maps(cfg, scenes, device):
     return dict(det_heatmaps=hm, det_sizemaps=size, det_orimaps=ori)
 
 
-def evaluate_routes(cfg, models, routes, max_ticks: int = 600,
-                    speed: float = 8.0, max_points: int = 2048,
-                    rgb_hw=(288, 256), tel_hw=(192, 480), seed: int = 0):
+def evaluate_routes(cfg, models, routes, step_fn=None, init_state=None,
+                    max_ticks: int = 600, speed: float = 8.0,
+                    max_points: int = 2048, rgb_hw=(288, 256),
+                    tel_hw=(192, 480), seed: int = 0,
+                    gt_perception: bool = True, device=None):
     """Replay each route's geometry through the agent: a virtual ego
     traverses the densified route polyline while Waypointer / RoutePlanner
     consume its leaderboard-format global plan (turn, straight and
@@ -272,18 +275,31 @@ def evaluate_routes(cfg, models, routes, max_ticks: int = 600,
     command histogram, stability, latency.
 
     The per-tick advance is stretched so each route is driven end to end
-    within max_ticks.  The agent is built here with `det_override` on the
-    models' device and reads the ground-truth maps of `scripted_scene` (LAV's own GT feed, lav_final_v2.py:228-233): the
-    collision forecast must both trigger during a crossing and release
-    after it (`collide_releases`).  Draws from `rng` in lav_tpu's order:
-    GPS noise, the points (x, y, z, r), the cameras, the telephoto.
+    within max_ticks.  With gt_perception (lav_tpu's default) the agent is
+    built here with `det_override` on the models' device, whatever step
+    the caller gave, and reads the ground-truth maps of `scripted_scene`
+    (LAV's own GT feed, lav_final_v2.py:228-233): the collision forecast
+    must both trigger during a crossing and release after it
+    (`collide_releases`).  Without it, the caller's `step_fn(models,
+    state, obs)` and `init_state()` drive the replay on the network's own
+    detections (built here with `build_agent` when not given); with
+    `models` None the step is called as step_fn(state, obs), the form of
+    `agent/export.py::load_agent_step`, on `device` (default `cuda`).
+    Draws from `rng` in lav_tpu's order: GPS noise, the points (x, y, z,
+    r), the cameras, the telephoto.
 
     Returns a list of per-route records for make_route_results.
     """
-    dev = _device(models)
-    init_state, step_fn = build_agent(
-        cfg, max_points=max_points, rgb_hw=rgb_hw, det_override=True,
-        device=dev)
+    dev = _device(models) if models is not None else resolve_device(device)
+    if gt_perception:
+        init_state, step_fn = build_agent(
+            cfg, max_points=max_points, rgb_hw=rgb_hw, det_override=True,
+            device=dev)
+    elif step_fn is None or init_state is None:
+        init_state, step_fn = build_agent(cfg, max_points=max_points,
+                                          rgb_hw=rgb_hw, device=dev)
+    if models is not None:
+        step_fn = functools.partial(step_fn, models)
 
     records = []
     for ridx, route in enumerate(routes):
@@ -367,9 +383,10 @@ def evaluate_routes(cfg, models, routes, max_ticks: int = 600,
                 target=np.asarray(target),
             )
             obs = obs_to_tensors([frame], dev)
-            obs.update(scene_maps(cfg, [scripted_scene(t)], dev))
+            if gt_perception:
+                obs.update(scene_maps(cfg, [scripted_scene(t)], dev))
             timer.start()
-            ctrl, state, aux = step_fn(models, state, obs)
+            ctrl, state, aux = step_fn(state, obs)
             timer.stop(ctrl)
             c = np.array([float(x[0]) for x in ctrl])
             collide = bool(aux["collide"][0])

@@ -10,6 +10,12 @@ quant="mxu" is bench.py's production configuration: the lidar model and
 the planner's crop ResNet are quantized (`nn/quant.py`), then calibrated
 as lav_tpu calibrates them, eagerly in f32 observer mode, here over two
 ticks of a one-ego agent on seeded observations, on the target device.
+quant="all" is lav_tpu's whole-tree scope (`BENCH_INT8=1` with any other
+`quant_int8` than "mxu", `__graft_entry__.py:64-77`): every stack of the
+agent, the camera ERFNet and the brake net's ResNet too, by the same
+rules (`quantize_tree`: convs of at least 16 input channels outside the
+float subtrees), calibrated the same way.  A setup that fails raises; the
+port has no fallback to float.
 lav_tpu's committed scales (`artifacts/calib/`) belong to JAX-initialised
 weights; `utils/weights.py::load_calibration` applies them to converted
 lav_tpu params.
@@ -88,14 +94,15 @@ def v2_agent_setup(max_points: int = 8192, num_ego: int = 1,
     """Returns (step, models, state, obs, cfg) for the full-width v2 agent
     (3 cameras at img_hw, the 192x480 telephoto image) on `device`
     (default `cuda`; raises without a card unless `device='cpu'`).
-    quant None or "mxu"; compute_dtype None (f32) or torch.bfloat16;
+    quant None, "mxu" or "all"; compute_dtype None (f32) or torch.bfloat16;
     use_pallas picks the pillar route (ops/pillar.py, `BENCH_PALLAS=1`);
     s2d_crops the planner's space-to-depth int8 crops (`LAV_S2D_CROPS=1`);
-    int8_upconv, under "mxu", the int8 upconvs (`LAV_INT8_UPCONV=1`)."""
-    if quant not in (None, "mxu"):
-        raise ValueError(f"quant={quant!r}: None or 'mxu'")
-    if int8_upconv and quant != "mxu":
-        raise ValueError("int8_upconv needs quant='mxu'")
+    int8_upconv, under "mxu" or "all", the int8 upconvs
+    (`LAV_INT8_UPCONV=1`)."""
+    if quant not in (None, "mxu", "all"):
+        raise ValueError(f"quant={quant!r}: None, 'mxu' or 'all'")
+    if int8_upconv and quant is None:
+        raise ValueError("int8_upconv needs quant='mxu' or 'all'")
     dev = resolve_device(device)
     cfg = v2_config()
     init_state, step = build_agent(cfg, num_ego=num_ego,
@@ -105,10 +112,12 @@ def v2_agent_setup(max_points: int = 8192, num_ego: int = 1,
                                    s2d_crops=s2d_crops, device=dev)
     gen = torch.Generator().manual_seed(seed)
     models = AgentModels(cfg, brake_version=2, gen=gen)
+    include = r"^upconv\d$" if int8_upconv else None
     if quant == "mxu":
-        Q.quantize_tree(models.lidar_model,
-                        include=r"^upconv\d$" if int8_upconv else None)
+        Q.quantize_tree(models.lidar_model, include=include)
         Q.quantize_tree(models.uniplanner)
+    elif quant == "all":
+        Q.quantize_tree(models, include=include)
     models = models.to(dev).eval()
     if quant:
         calibrate_agent(models, cfg, max_points, img_hw, dev)

@@ -142,6 +142,16 @@ def crop_shared(src, grid, q8_x_scale=None, s2d: bool = False):
     if s2d and not (q8 and grid.shape[2] % 2 == 0 and grid.shape[3] % 2 == 0):
         raise ValueError(f"crop_shared: s2d needs q8_x_scale and an even "
                          f"crop, got grid {tuple(grid.shape)}")
+    if native.EXPORTING:
+        if not q8:
+            return _OPS["crop_shared"](src, grid)
+        return _OPS["crop_shared_q8_s2d" if s2d else "crop_shared_q8"](
+            src, grid, q8_x_scale)
+    return _crop_shared(src, grid, q8_x_scale, s2d)
+
+
+def _crop_shared(src, grid, q8_x_scale=None, s2d: bool = False):
+    q8 = q8_x_scale is not None
     if src.device.type == "cpu":
         if q8:
             out = grid_sample_shared_q8(src, grid, inverse_scale(q8_x_scale))
@@ -344,6 +354,32 @@ def crop_shared_bwd(g, grid, H: int, W: int):
                   d_src.data_ptr(), cmap.data_ptr(), B, H, W, C, K, Ho, Wo,
                   vec)
     return d_src
+
+
+def _crop_op(q8: bool, s2d: bool):
+    """crop_shared's form as a custom op's implementation and fake."""
+    if q8:
+        def impl(src: torch.Tensor, grid: torch.Tensor,
+                 x_scale: torch.Tensor) -> torch.Tensor:
+            return _crop_shared(src, grid, x_scale, s2d)
+    else:
+        def impl(src: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+            return _crop_shared(src, grid)
+
+    def fake(src, grid, *x_scale):
+        B, K, Ho, Wo, _ = grid.shape
+        C = src.shape[-1]
+        return src.new_empty((B, K, Ho // 2, Wo // 2, 4 * C) if s2d else
+                             (B, K, Ho, Wo, C),
+                             dtype=torch.int8 if q8 else src.dtype)
+    return impl, fake
+
+
+# the crops as custom ops (`native.custom_op`), for export
+_OPS = {name: native.custom_op(name, *_crop_op(q8, s2d))
+        for name, q8, s2d in (("crop_shared", False, False),
+                              ("crop_shared_q8", True, False),
+                              ("crop_shared_q8_s2d", True, True))}
 
 
 class CropShared(torch.autograd.Function):

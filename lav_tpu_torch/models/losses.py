@@ -5,13 +5,17 @@
 Formula for formula lav_tpu's: every ragged reduction of LAV (selected
 cars, brake-free frames) is a masked mean over fixed-capacity slots, and
 a teacher's output enters through `detach` where lav_tpu has
-`stop_gradient`.
+`stop_gradient`.  Every mean over the batch is `batch_mean` /
+`batch_sum`: under a data mesh (`parallel.reducing`) the global batch's,
+so that a ratio of means is the global ratio.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from lav_tpu_torch.parallel import batch_mean, batch_sum
 
 
 def bce_with_logits(logits, targets):
@@ -34,9 +38,13 @@ def smooth_l1(pred, target, beta: float = 1.0):
 
 
 def masked_mean(x, mask, dim=None):
+    """The mean of x over `mask`: over the global batch with dim None, else
+    along `dim` (within each item)."""
     m = mask.to(x.dtype)
-    num = (x * m).sum() if dim is None else (x * m).sum(dim=dim)
-    den = m.sum() if dim is None else m.sum(dim=dim)
+    if dim is None:
+        num, den = batch_sum((x * m).sum()), batch_sum(m.sum())
+    else:
+        num, den = (x * m).sum(dim=dim), m.sum(dim=dim)
     return num / torch.clamp(den, min=1.0)
 
 
@@ -56,11 +64,11 @@ def det_loss(pred_heatmaps, heatmaps, pred_sizemaps, sizemaps,
     size_w = heatmaps.amax(dim=1, keepdim=True)
     p_det = torch.sigmoid(pred_heatmaps * (1.0 - 2.0 * heatmaps))
     hm = bce_with_logits(pred_heatmaps, heatmaps)
-    hm_loss = (hm * p_det).mean() / p_det.mean()
-    box_loss = ((size_w * smooth_l1(pred_sizemaps, sizemaps)).mean()
-                / size_w.mean())
-    ori_loss = ((size_w * smooth_l1(pred_orimaps, orimaps)).mean()
-                / size_w.mean())
+    hm_loss = batch_mean(hm * p_det) / batch_mean(p_det)
+    box_loss = (batch_mean(size_w * smooth_l1(pred_sizemaps, sizemaps))
+                / batch_mean(size_w))
+    ori_loss = (batch_mean(size_w * smooth_l1(pred_orimaps, orimaps))
+                / batch_mean(size_w))
     return hm_loss, box_loss, ori_loss
 
 
@@ -79,14 +87,14 @@ def plan_loss_all_cmds(ego_plan_locs, target, idxs=None, item_weights=None):
     if item_weights is not None:
         per_item = per_item * item_weights
     if idxs is None:
-        return per_item.mean()
+        return batch_mean(per_item)
     return masked_mean(per_item, idxs)
 
 
 def cast_loss_at_cmd(ego_cast_locs, ego_gt, cmds):
     """L1 of the cast (B, C, T, 2) at each item's command against the GT
     future (B, T, 2)."""
-    return torch.abs(gather_cmd(ego_cast_locs, cmds) - ego_gt).mean()
+    return batch_mean(torch.abs(gather_cmd(ego_cast_locs, cmds) - ego_gt))
 
 
 def other_cast_loss_min_mode(other_cast_locs, other_gt, car_valid):
@@ -101,7 +109,7 @@ def distill_l1(student, expert, car_valid=None):
     when given."""
     err = torch.abs(student - expert.detach())
     if car_valid is None:
-        return err.mean()
+        return batch_mean(err)
     return masked_mean(err.mean(dim=tuple(range(2, err.ndim))), car_valid)
 
 
@@ -109,11 +117,11 @@ def cmd_bce(pred_cmds, cmds, num_cmds: int, smooth: float = 0.0):
     """BCE of the per-command scores against the smoothed one-hot GT."""
     onehot = F.one_hot(cmds.long(), num_cmds).to(pred_cmds.dtype)
     target = (1.0 - smooth) * onehot + smooth / num_cmds
-    return bce(pred_cmds, target).mean()
+    return batch_mean(bce(pred_cmds, target))
 
 
 def cmd_distill_bce(pred_cmds, expert_cmds, car_valid=None):
     e = bce(pred_cmds, expert_cmds.detach())
     if car_valid is None:
-        return e.mean()
+        return batch_mean(e)
     return masked_mean(e.mean(dim=-1), car_valid)

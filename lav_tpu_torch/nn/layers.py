@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from lav_tpu_torch import parallel
 from lav_tpu_torch.nn import quant
 
 
@@ -180,11 +181,13 @@ class BatchNorm(nn.Module):
     over every axis but `dim`, restricted to `mask` (broadcastable to x
     without its channel axis) when given; normalised with the biased
     variance; y = (x - mean) * rsqrt(var + eps) * scale + bias, cast to
-    the input dtype.  The updated running statistics, (1 - momentum) * old
-    + momentum * batch with the unbiased variance, are kept in `new_stats`
-    and not applied: a module called twice before `merge_bn_state` keeps
-    only its last call's update, computed from the old statistics, as
-    lav_tpu's state tree does (`utils/tree.py::merge_bn_state`)."""
+    the input dtype; under a data mesh (`parallel.reducing`) the sums and
+    counts are the global batch's.  The updated running statistics,
+    (1 - momentum) * old + momentum * batch with the unbiased variance,
+    are kept in `new_stats` and not applied: a module called twice before
+    `merge_bn_state` keeps only its last call's update, computed from the
+    old statistics, as lav_tpu's state tree does
+    (`utils/tree.py::merge_bn_state`)."""
 
     def __init__(self, c: int, eps: float = 1e-5, dim: int = 1,
                  momentum: float = 0.1):
@@ -218,7 +221,18 @@ class BatchNorm(nn.Module):
         dim = self.dim % x.ndim
         axes = tuple(a for a in range(x.ndim) if a != dim)
         xs = x.float()
-        if mask is None:
+        if parallel.active() is not None:   # statistics of the global batch
+            if mask is None:
+                n = float(math.prod(x.shape[a] for a in axes)
+                          * parallel.world())
+                m = 1.0
+            else:
+                m = mask.float().unsqueeze(dim)
+                n = torch.clamp(parallel.batch_sum(m.sum()), min=1.0)
+            mean = parallel.batch_sum((xs * m).sum(dim=axes)) / n
+            var = parallel.batch_sum(
+                (((xs - mean.reshape(shape)) ** 2) * m).sum(dim=axes)) / n
+        elif mask is None:
             mean = xs.mean(dim=axes)
             var = ((xs - mean.reshape(shape)) ** 2).mean(dim=axes)
             n = float(math.prod(x.shape[a] for a in axes))
@@ -340,8 +354,12 @@ def dropout(x, mask, rate: float):
 def dropout_mask(gen, shape, rate: float, device=None):
     """A dropout mask of `shape` drawn from the torch.Generator `gen`,
     which lives on `device` (the activation's): True with probability 1 -
-    rate, as jax.random.bernoulli(key, 1 - rate, shape) draws it."""
-    return torch.rand(shape, generator=gen, device=device) < (1.0 - rate)
+    rate, as jax.random.bernoulli(key, 1 - rate, shape) draws it.  Under a
+    data mesh the global batch's mask is drawn and cut to this rank's
+    rows."""
+    shape = (parallel.global_rows(shape[0]), *shape[1:])
+    return parallel.local_rows(
+        torch.rand(shape, generator=gen, device=device) < (1.0 - rate))
 
 
 def interpolate_nearest(x, scale: int):

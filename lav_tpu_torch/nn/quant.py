@@ -48,8 +48,12 @@ import torch.nn.functional as F
 
 from lav_tpu_torch.utils import native
 
-# subtrees that stay float (lav_tpu/nn/quant.py:68): transposed convs and
-# the lidar backbone's entry block
+# subtrees that stay float (lav_tpu/nn/quant.py:66), by the port's module
+# names, which are lav_tpu's params keys: the brake net's seg head's and
+# the lidar heads' transposed convs (`up1`-`up3`, `up`), the lidar
+# backbone's `upconv1`-`upconv3` and entry block `conv1_0`, ERFNet's
+# `output_conv`.  ERFNet's decoder upsamplers (`dec_i.conv`) are walked,
+# as lav_tpu walks their keys, and go int8 under the whole-tree scope.
 _SKIP_KEYS = re.compile(r"^(up\d*|upconv\d*|output_conv|conv1_0)$")
 
 _CALIBRATING = False
@@ -69,8 +73,9 @@ def quantize_tree(module, *, min_channels: int = 16, include=None):
     """Switch every conv under `module` with at least `min_channels` input
     channels to int8, skipping the `_SKIP_KEYS` subtrees unless their name
     matches `include` (a regex; lav_tpu's `LAV_INT8_UPCONV=1` passes
-    r"^upconv\\d$"); a transposed conv is reached only through such a
-    subtree.  Returns `module`."""
+    r"^upconv\\d$"); a transposed conv outside them (ERFNet's decoder
+    upsamplers) goes int8 as lav_tpu's conv_transpose2d_int8.  Returns
+    `module`."""
     from lav_tpu_torch.nn.layers import Conv2d, ConvTranspose2d
 
     if isinstance(include, str):
@@ -376,6 +381,38 @@ def _kernel_weight(w_int8):
 
 def conv2d_int8_nhwc(xq, w_int8, w_scale, s_x, b, stride, padding, dilation,
                      out_dtype, lhs_dilation=(1, 1)):
+    """Kernel `conv2d_int8`: see `_conv2d_int8_nhwc`; while
+    `native.exporting()` is on, through its custom op."""
+    if native.EXPORTING:
+        return _conv_op(xq, w_int8, w_scale, s_x, b, list(stride),
+                        [p for pair in _pads(padding) for p in pair],
+                        list(dilation), out_dtype, list(lhs_dilation))
+    return _conv2d_int8_nhwc(xq, w_int8, w_scale, s_x, b, stride, padding,
+                             dilation, out_dtype, lhs_dilation)
+
+
+def _conv_impl(xq: torch.Tensor, w_int8: torch.Tensor, w_scale: torch.Tensor,
+               s_x: torch.Tensor, b: torch.Tensor | None, stride: list[int],
+               padding: list[int], dilation: list[int],
+               out_dtype: torch.dtype, lhs_dilation: list[int]
+               ) -> torch.Tensor:
+    return _conv2d_int8_nhwc(xq, w_int8, w_scale, s_x, b, stride,
+                             (padding[:2], padding[2:]), dilation, out_dtype,
+                             lhs_dilation)
+
+
+def _conv_fake(xq, w_int8, w_scale, s_x, b, stride, padding, dilation,
+               out_dtype, lhs_dilation):
+    N, H, W, _ = xq.shape
+    O, KH, KW, _ = w_int8.shape
+    OH, OW = (axis_plan(n, k, s, p, d, lh)[0] for n, k, s, p, d, lh in zip(
+        (H, W), (KH, KW), stride, (padding[:2], padding[2:]), dilation,
+        lhs_dilation))
+    return xq.new_empty((N, OH, OW, O), dtype=out_dtype)
+
+
+def _conv2d_int8_nhwc(xq, w_int8, w_scale, s_x, b, stride, padding,
+                      dilation, out_dtype, lhs_dilation=(1, 1)):
     """Kernel `conv2d_int8` (contract of `conv2d_int8_plain`); stride,
     dilation and lhs_dilation are (h, w) pairs, padding (h, w) or ((top,
     bottom), (left, right)).  CPU tensors take the plain version.  On CUDA
@@ -425,3 +462,7 @@ def conv2d_int8_nhwc(xq, w_int8, w_scale, s_x, b, stride, padding, dilation,
                   None if bias is None else bias.data_ptr(), out.data_ptr(),
                   plan)
     return out
+
+
+# the conv as a custom op (`native.custom_op`), for export
+_conv_op = native.custom_op("conv2d_int8", _conv_impl, _conv_fake)

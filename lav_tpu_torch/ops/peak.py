@@ -26,15 +26,20 @@ def extract_peaks(heatmap, *, max_pool_ks: int = 7, min_score: float = 0.1,
                   max_det: int = 15):
     """heatmap (B, H, W) -> (scores, xs, ys, valid), each (B, K).
 
-    A peak must equal its ks x ks local max; then top-k by score.  Ties may
-    be ordered differently from JAX's top_k: compare detections through
-    their valid mask."""
+    A peak must equal its ks x ks local max; then the top k by score, from
+    a stable descending sort, so tied scores keep the lower index first,
+    as JAX's top_k orders them (torch.topk leaves ties in no fixed order).
+    The sort takes two launches, where a top-k over an int64 key that
+    breaks ties by index takes about a dozen: twice the host time a call,
+    and the ticks are launch-bound (PERF.md)."""
     B, H, W = heatmap.shape
     local_max = F.max_pool2d(heatmap[:, None], max_pool_ks, 1,
                              max_pool_ks // 2)[:, 0]
     suppressed = heatmap - (local_max > heatmap).to(heatmap.dtype) * 1e5
     k = min(max_det, H * W)
-    scores, idx = torch.topk(suppressed.reshape(B, -1), k, dim=-1)
+    scores, idx = torch.sort(suppressed.reshape(B, -1), dim=-1,
+                             descending=True, stable=True)
+    scores, idx = scores[:, :k], idx[:, :k]
     xs = (idx % W).to(torch.int32)
     ys = (idx // W).to(torch.int32)
     return scores, xs, ys, scores > min_score

@@ -146,6 +146,12 @@ def pillar_scatter_max(feat, pid, num_segments: int, keep_sort: bool = False):
     `keep_sort`, -> (canvas, sort): the kernel's scratch, which holds its
     counting sort of the points by row (`read_canvas_sort`), for
     `pillar_scatter_max_bwd`; on the CPU `canvas_sort_plain` builds it."""
+    if native.EXPORTING and not keep_sort:
+        return _OPS["pillar_scatter_max"](feat, pid, num_segments)
+    return _pillar_scatter_max(feat, pid, num_segments, keep_sort)
+
+
+def _pillar_scatter_max(feat, pid, num_segments: int, keep_sort=False):
     return _scatter("pillar_scatter_max", _K2_ENTRY.get(feat.dtype),
                     pillar_scatter_max_plain, feat, pid, num_segments,
                     canvas=True, keep_sort=keep_sort)
@@ -465,12 +471,49 @@ def read_canvas_sort(sort, n: int, C: int, num_segments: int, elem: int):
     return offsets, _i32(sort, L["idx"], n)[:int(offsets[-1])].long()
 
 
+# csrc/pillar_scatter.cu's kTileItems, kDigits, kBits and kAlign
+ADD_TILE, ADD_DIGITS, ADD_BITS, ADD_ALIGN = 2048, 256, 8, 256
+
+
+def scatter_add_layout(n: int, num_segments: int) -> dict:
+    """The scratch buffer of kernel `scatter_add` for n points into
+    num_segments rows: csrc/pillar_scatter.cu's `AddLayout`, each array's
+    byte offset (aligned to ADD_ALIGN) and `total` bytes: two key and two
+    index arrays of n (the radix sort's ping-pong), the (digit, tile)
+    counts of each pass and each pass's digit totals.  Also `tiles` and
+    `passes` (8 bits of the row a pass)."""
+    at = 0
+
+    def take(nbytes):
+        nonlocal at
+        start = at
+        at = -(-(at + nbytes) // ADD_ALIGN) * ADD_ALIGN
+        return start
+
+    tiles = -(-n // ADD_TILE)
+    bits = max(1, (num_segments - 1).bit_length())
+    passes = -(-bits // ADD_BITS)
+    L = dict(tiles=tiles, passes=passes)
+    for key in ("keys0", "vals0", "keys1", "vals1"):
+        L[key] = take(4 * n)
+    L["hist"] = take(4 * passes * ADD_DIGITS * tiles)
+    L["totals"] = take(4 * passes * ADD_DIGITS)
+    L["total"] = at
+    return L
+
+
+def scatter_add_scratch_bytes(n: int, num_segments: int) -> int:
+    """Bytes of the scratch buffer kernel `scatter_add` takes."""
+    return scatter_add_layout(n, num_segments)["total"]
+
+
 def _scatter(name, entry, plain, feat, pid, num_segments: int,
              canvas: bool, keep_sort: bool = False):
     """Launch `entry` (kernel `name`) on (feat, pid); CPU tensors take
-    `plain`.  A canvas max writes every row of an uninitialised output and
-    takes a scratch buffer (`canvas_scratch_bytes`), which it returns
-    beside the canvas with `keep_sort`; the add sums into a zeroed one.
+    `plain`.  Each takes a scratch buffer.  A canvas max writes every row
+    of an uninitialised output (scratch `canvas_scratch_bytes`, returned
+    beside the canvas with `keep_sort`); the add sums into a zeroed one
+    (scratch `scatter_add_scratch_bytes`).
     The checks the scatters share (int32 pid (N,) beside feat (N, C) on
     its device, both contiguous, bf16 rows in 4-byte channel pairs) are
     one test on the fast path; `_refuse` says what is wrong."""
@@ -489,15 +532,13 @@ def _scatter(name, entry, plain, feat, pid, num_segments: int,
                                           feat.element_size())
         _refuse(name, entry, feat, pid)
     N, C = feat.shape
-    if not canvas:
+    if canvas:
+        out = feat.new_empty((num_segments, C))
+        nbytes = canvas_scratch_bytes(N, C, num_segments, feat.element_size())
+    else:
         out = feat.new_zeros((num_segments, C))
-        native.launch(entry, dev, feat.data_ptr(), pid.data_ptr(),
-                      out.data_ptr(), N, C, num_segments)
-        return out
-    out = feat.new_empty((num_segments, C))
-    scratch = torch.empty(canvas_scratch_bytes(N, C, num_segments,
-                                               feat.element_size()),
-                          dtype=torch.uint8, device=feat.device)
+        nbytes = scatter_add_scratch_bytes(N, num_segments)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=feat.device)
     native.launch(entry, dev, feat.data_ptr(), pid.data_ptr(),
                   out.data_ptr(), N, C, num_segments, scratch.data_ptr(),
                   scratch.numel())
@@ -534,8 +575,8 @@ def scatter_max_plain(feat, pid, num_segments: int):
 
 def scatter_add_plain(feat, pid, num_segments: int):
     """Plain version of kernel `scatter_add`: feat (N, C) f32, pid (N,)
-    -> (num_segments, C) f32 per-segment sums; ids outside the range are
-    dropped."""
+    -> (num_segments, C) f32 per-segment sums, each added in point order
+    from 0 (index_add_ on the CPU); ids outside the range are dropped."""
     ok = (pid >= 0) & (pid < num_segments)
     acc = feat.new_zeros((num_segments, feat.shape[-1]))
     return acc.index_add_(0, pid.long()[ok], feat[ok])
@@ -551,16 +592,48 @@ def scatter_max(feat, pid, num_segments: int, keep_sort: bool = False):
     of the production route.  CPU tensors take the plain version.  With
     `keep_sort`, -> (canvas, sort), as `pillar_scatter_max` returns them,
     for `scatter_max_bwd`."""
+    if native.EXPORTING and not keep_sort:
+        return _OPS["scatter_max"](feat, pid, num_segments)
+    return _scatter_max(feat, pid, num_segments, keep_sort)
+
+
+def _scatter_max(feat, pid, num_segments: int, keep_sort=False):
     return _scatter("scatter_max", _K3_ENTRY.get(("max", feat.dtype)),
                     scatter_max_plain, feat, pid, num_segments, canvas=True,
                     keep_sort=keep_sort)
 
 
 def scatter_add(feat, pid, num_segments: int):
-    """Kernel `scatter_add` (contract of `scatter_add_plain`), the
-    decoration sums.  CPU tensors take the plain version."""
+    """Kernel `scatter_add` (contract of `scatter_add_plain`, bit for bit),
+    the decoration sums.  CPU tensors take the plain version."""
+    if native.EXPORTING:
+        return _OPS["scatter_add"](feat, pid, num_segments)
+    return _scatter_add(feat, pid, num_segments)
+
+
+def _scatter_add(feat, pid, num_segments: int):
     return _scatter("scatter_add", _K3_ENTRY.get(("add", feat.dtype)),
                     scatter_add_plain, feat, pid, num_segments, canvas=False)
+
+
+def _rows_op(direct):
+    """A scatter (feat (N, C), pid (N,), num_segments) -> (num_segments,
+    C) as a custom op's implementation."""
+    def impl(feat: torch.Tensor, pid: torch.Tensor,
+             num_segments: int) -> torch.Tensor:
+        return direct(feat, pid, num_segments)
+    return impl
+
+
+def _rows_fake(feat, pid, num_segments):
+    return feat.new_empty((num_segments, feat.shape[1]))
+
+
+# the tick's scatters as custom ops (`native.custom_op`), for export
+_OPS = {name: native.custom_op(name, _rows_op(direct), _rows_fake)
+        for name, direct in (("pillar_scatter_max", _pillar_scatter_max),
+                             ("scatter_max", _scatter_max),
+                             ("scatter_add", _scatter_add))}
 
 
 class PointPillar(nn.Module):
@@ -614,7 +687,12 @@ class PointPillar(nn.Module):
             feat = getattr(self, f"linear_{i}")(feat)
             feat = F.relu(getattr(self, f"bn_{i}")(feat, mask=keep))
         C = feat.shape[-1]
-        canvas_max = (CanvasMax if self.training else
-                      PallasEvalMax if use_pallas else ScatterMax)
-        canvas = canvas_max.apply(feat.contiguous(), canvas_pid, B * G)
+        neg_init = self.training or use_pallas
+        if torch.is_grad_enabled() and feat.requires_grad:
+            canvas_max = (CanvasMax if self.training else
+                          PallasEvalMax if use_pallas else ScatterMax)
+            canvas = canvas_max.apply(feat.contiguous(), canvas_pid, B * G)
+        else:   # no gradient: the kernel alone (as a custom op in export)
+            canvas = (pillar_scatter_max if neg_init else scatter_max)(
+                feat.contiguous(), canvas_pid, B * G)
         return canvas.reshape(B, ny, nx, C)

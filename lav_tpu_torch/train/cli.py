@@ -14,8 +14,18 @@ halved every 32 epochs, full: every 16), a checkpoint every
         --v2 --motion-only
     python -m lav_tpu_torch.train.cli seg --device cpu   # without a card
 
-The stages run on one device: the card unless --device says otherwise
-(`utils/device.py`); --dcn-slices other than 0 raises.  --grad-accum N is
+The stages run on the card unless --device says otherwise
+(`utils/device.py`).  Launched as several ranks (`torchrun
+--nproc_per_node N -m lav_tpu_torch.train.cli ...`), a stage trains
+data-parallel over them (`parallel/mesh.py`): each rank on
+`cuda:LOCAL_RANK` (NCCL; gloo with --device cpu), every rank builds the
+global batch from the seeded loader and keeps its rows, and a step
+computes the one-process step on the global batch.  The batch size must
+divide over the ranks (lav_tpu's check and message).  Only rank 0 logs
+and saves checkpoints; every rank resumes from the same file.
+--dcn-slices N asks for lav_tpu's hybrid (dcn, data) mesh: the world
+size must be a multiple of N, and training is the same data parallelism
+(NCCL picks its own hierarchy).  --grad-accum N is
 optax.MultiSteps (`train/distill.py::MultiSteps`): Adam on the mean of N
 micro-batch gradients every N-th micro-step, the schedule counting
 updates.  Kept from lav_tpu on purpose: `steps_per_epoch` of the schedule
@@ -47,11 +57,13 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from lav_tpu_torch import parallel
 from lav_tpu_torch.config import LAVConfig, load_config, v1_config, v2_config
 from lav_tpu_torch.data.datasets import get_dataset
 from lav_tpu_torch.data.loader import DataLoader
 from lav_tpu_torch.models.planner import BEVPlanner
 from lav_tpu_torch.models.rgb import BrakeModel, SegModel
+from lav_tpu_torch.parallel import DataMesh
 from lav_tpu_torch.train.checkpoints import (
     load_checkpoint, load_params, save_checkpoint, snapshot,
 )
@@ -86,8 +98,9 @@ def _common_args(p: argparse.ArgumentParser):
                    help="torchvision resnet18 state_dict .pth for the "
                         "brake net's ImageNet-pretrained backbone")
     p.add_argument("--dcn-slices", type=int, default=0,
-                   help="multi-device data parallelism; only 0 (one "
-                        "device) is supported")
+                   help="slices of lav_tpu's hybrid mesh: the ranks' "
+                        "number must be a multiple of it; trains data-"
+                        "parallel over the ranks as without it")
     p.add_argument("--grad-accum", type=int, default=1,
                    help="accumulate gradients over N micro-batches before "
                         "each optimizer update (effective batch = "
@@ -274,19 +287,29 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def train(stage: Stage, args) -> TrainRun:
+def train(stage: Stage, args, mesh: Optional[DataMesh] = None) -> TrainRun:
     """The stage's loop: resume, then epochs of loader batches through
     `stage.run`, logging every --num-per-log steps and saving every
-    --num-per-save epochs."""
-    if getattr(args, "dcn_slices", 0):
-        raise ValueError(
-            f"--dcn-slices {args.dcn_slices}: the port trains on one device; "
-            "multi-device data parallelism is not ported yet (ROADMAP.md "
-            "section A, the torch.distributed data mesh)")
+    --num-per-save epochs; data-parallel over `mesh` when given (every
+    rank its rows of the global batch; rank 0 logs and saves)."""
     name, models, opt, dev = stage.name, stage.models, stage.optimizer, \
         stage.device
     bs = args.batch_size or stage.defaults["bs"]
     epochs = args.num_epoch or stage.defaults["epochs"]
+    n_dev = 1 if mesh is None else mesh.world
+    slices = getattr(args, "dcn_slices", 0)
+    if slices and n_dev % slices:
+        raise ValueError(f"--dcn-slices {slices}: {n_dev} ranks do not "
+                         f"factor into {slices} slices")
+    if bs % n_dev:
+        raise ValueError(
+            f"batch size {bs} is not divisible by the {n_dev}-device data "
+            f"mesh; pick a multiple of {n_dev} "
+            f"(e.g. --batch-size {-(-bs // n_dev) * n_dev})"
+        )
+    lead = mesh is None or mesh.rank == 0
+    if mesh is not None:
+        parallel.broadcast_params(models, mesh)
     start_epoch, it = 0, 0
     if args.resume:
         snap = load_checkpoint(args.resume, models, opt)
@@ -295,30 +318,33 @@ def train(stage: Stage, args) -> TrainRun:
 
     loader = DataLoader(stage.dataset, bs, shuffle=True, seed=args.seed,
                         device=dev)
-    logger = Logger(f"lav_{name}", use_wandb=args.log_wandb,
-                    save_dir=os.path.join(args.save_dir, name))
+    logger = (Logger(f"lav_{name}", use_wandb=args.log_wandb,
+                     save_dir=os.path.join(args.save_dir, name))
+              if lead else None)
     clock, per_epoch, dtypes = StepClock(dev), [], {}
-    for epoch in range(start_epoch, epochs):
-        t0, n = time.perf_counter(), 0
-        for batch in loader:
-            if not dtypes:
-                dtypes = {k: v.dtype for k, v in batch.items()}
-            clock.start()
-            m = stage.run(batch, it)
-            clock.stop()
-            if it % args.num_per_log == 0:
-                rec = logger.log(it, m)
-                print(f"[{name}] epoch {epoch} it {it}: "
-                      f"loss={rec.get('loss', float('nan')):.4f}")
-            it += 1
-            n += bs
-        _sync(dev)
-        per_epoch.append((n, time.perf_counter() - t0))
-        if (epoch + 1) % args.num_per_save == 0:
-            path = os.path.join(logger.save_dir, f"{name}_{epoch + 1}")
-            save_checkpoint(path, snapshot(models, opt, epoch + 1, it))
-            print(f"saved {path}")
-    logger.close()
+    with parallel.reducing(mesh):
+        for epoch in range(start_epoch, epochs):
+            t0, n = time.perf_counter(), 0
+            for batch in loader:
+                if not dtypes:
+                    dtypes = {k: v.dtype for k, v in batch.items()}
+                clock.start()
+                m = stage.run(parallel.local_rows(batch), it)
+                clock.stop()
+                if it % args.num_per_log == 0 and lead:
+                    rec = logger.log(it, m)
+                    print(f"[{name}] epoch {epoch} it {it}: "
+                          f"loss={rec.get('loss', float('nan')):.4f}")
+                it += 1
+                n += bs
+            _sync(dev)
+            per_epoch.append((n, time.perf_counter() - t0))
+            if (epoch + 1) % args.num_per_save == 0 and lead:
+                path = os.path.join(logger.save_dir, f"{name}_{epoch + 1}")
+                save_checkpoint(path, snapshot(models, opt, epoch + 1, it))
+                print(f"saved {path}")
+    if lead:
+        logger.close()
     if it == 0 and epochs > start_epoch:
         raise RuntimeError(
             f"[{name}] trained ZERO steps over {epochs - start_epoch} "
@@ -348,8 +374,22 @@ def parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> TrainRun:
+    """Parse `argv` and train the stage: on one device, or data-parallel
+    when the process is one of several ranks (torchrun's WORLD_SIZE above
+    1) or a process group is running."""
     args = parser().parse_args(argv)
-    return train(SETUPS[args.stage](args), args)
+    import torch.distributed as dist
+
+    if not (parallel.launched() or dist.is_initialized()):
+        return train(SETUPS[args.stage](args), args)
+    started = not dist.is_initialized()
+    mesh = parallel.init_data_mesh(device=args.device)
+    args.device = str(mesh.device)
+    try:
+        return train(SETUPS[args.stage](args), args, mesh)
+    finally:
+        if started:
+            parallel.close_data_mesh()
 
 
 if __name__ == "__main__":

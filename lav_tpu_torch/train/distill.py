@@ -45,6 +45,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from lav_tpu_torch import parallel
 from lav_tpu_torch.config import LAVConfig, v2_config
 from lav_tpu_torch.core.heatmap import build_seg_mask
 from lav_tpu_torch.models import losses
@@ -84,9 +85,9 @@ def make_distill_loss_fn(cfg: LAVConfig, v2: bool = False,
             cx = W / 2.0 + (cfg.min_y + cfg.max_y) / 2.0 * cfg.pixels_per_meter
             cy = H / 2.0 + (cfg.min_x + cfg.max_x) / 2.0 * cfg.pixels_per_meter
             seg_mask = build_seg_mask(H, W, cx, cy, device=dev)[None, None]
-            seg_l = (seg_bce * seg_mask).mean() * cfg.seg_weight
+            seg_l = parallel.batch_mean(seg_bce * seg_mask) * cfg.seg_weight
         else:
-            seg_l = seg_bce.mean() * cfg.seg_weight
+            seg_l = parallel.batch_mean(seg_bce) * cfg.seg_weight
 
         if v2:
             # distil the plan from the teacher's last-iteration plan at the
@@ -179,8 +180,16 @@ def make_distill_forward(cfg: LAVConfig, v2: bool = False,
 def optimizer_step(models, optimizer, loss, metrics) -> dict:
     """The tail of every train step: backward, `grad_norm` (optax's global
     norm over every gradient) into `metrics`, the optimizer step and the
-    BN merge; returns the metrics detached."""
-    loss.backward()
+    BN merge; returns the metrics detached.  Under a data mesh
+    (`parallel.reducing`) every rank seeds loss / N and the gradients are
+    summed over the ranks before the norm: the global batch's gradient,
+    once a micro-step, as lav_tpu's psum gives it."""
+    mesh = parallel.active()
+    if mesh is None:
+        loss.backward()
+    else:
+        (loss / mesh.world).backward()
+        parallel.allreduce_grads(models, mesh)
     grads = [p.grad for p in models.parameters() if p.grad is not None]
     metrics["grad_norm"] = torch.sqrt(
         torch.stack([(g * g).sum() for g in grads]).sum())
@@ -204,10 +213,11 @@ def make_full_train_step(cfg: LAVConfig, v2: bool = False,
 
     def step(models, optimizer, batch, gen=None, noise=None):
         models.train()
-        if noise is None:
+        if noise is None:   # the global batch's draws, this rank's rows
             B, N = batch["typs"].shape
-            noise = draw_noise(gen, B, N - 1, cfg.max_num_cars_student,
-                               device=batch["typs"].device)
+            noise = parallel.local_rows(draw_noise(
+                gen, parallel.global_rows(B), N - 1,
+                cfg.max_num_cars_student, device=batch["typs"].device))
         optimizer.zero_grad(set_to_none=True)
         loss, metrics = forward(models, batch, noise)
         return optimizer_step(models, optimizer, loss, metrics)

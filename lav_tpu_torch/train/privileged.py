@@ -29,12 +29,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from lav_tpu_torch import parallel
 from lav_tpu_torch.config import LAVConfig, v1_config, v2_config
 from lav_tpu_torch.models import losses
 from lav_tpu_torch.models.planner import (
     BEVPlanner, bev_planner_forward, draw_bev_noise,
 )
 from lav_tpu_torch.models.rgb import BRAKE_SEG_CHANNELS, BrakeModel, SegModel
+from lav_tpu_torch.parallel import batch_mean
 from lav_tpu_torch.train.distill import adam, optimizer_step
 from lav_tpu_torch.utils.device import resolve_device
 
@@ -90,10 +92,11 @@ def make_bev_train_step(cfg: LAVConfig, v2: bool = False):
     def step(models, optimizer, batch, gen=None, noise=None,
              other_weight=1.0):
         models.train()
-        if noise is None:
+        if noise is None:   # the global batch's draws, this rank's rows
             B, N = batch["typs"].shape
-            noise = draw_bev_noise(gen, B, N - 1, cfg.max_num_cars,
-                                   device=batch["typs"].device)
+            noise = parallel.local_rows(draw_bev_noise(
+                gen, parallel.global_rows(B), N - 1, cfg.max_num_cars,
+                device=batch["typs"].device))
         optimizer.zero_grad(set_to_none=True)
         out = bev_planner_forward(models, cfg, batch["bev"],
                                   batch["ego_locs"], batch["locs"],
@@ -115,7 +118,7 @@ def make_seg_train_step(cfg: LAVConfig):
         models.train()
         optimizer.zero_grad(set_to_none=True)
         logits = models(batch["rgb"], masks=masks, gen=gen)
-        loss = losses.cross_entropy(logits, batch["sem"]).mean()
+        loss = batch_mean(losses.cross_entropy(logits, batch["sem"]))
         return optimizer_step(models, optimizer, loss, dict(loss=loss))
 
     return step
@@ -135,9 +138,10 @@ def make_bra_train_step(cfg: LAVConfig, version: int = 1):
         optimizer.zero_grad(set_to_none=True)
         pred, sem1, sem2 = models(batch["rgb"], batch["tel_rgb"],
                                   with_mask=True)
-        loss = (losses.bce(pred, batch["bra"].to(pred.dtype)).mean()
-                + 0.5 * losses.cross_entropy(sem1, batch["sem"]).mean()
-                + 0.5 * losses.cross_entropy(sem2, batch["tel_sem"]).mean())
+        loss = (batch_mean(losses.bce(pred, batch["bra"].to(pred.dtype)))
+                + 0.5 * batch_mean(losses.cross_entropy(sem1, batch["sem"]))
+                + 0.5 * batch_mean(losses.cross_entropy(sem2,
+                                                        batch["tel_sem"])))
         return optimizer_step(models, optimizer, loss, dict(loss=loss))
 
     return step

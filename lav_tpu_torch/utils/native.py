@@ -19,7 +19,16 @@ one), raises with the kernel's name on a launch error, and counts the
 launch.
 
 `LAUNCHES` counts, per kernel, the wrapper calls that launched it on the
-card; `reset_launches` sets every count to 0.  A source may hold several
+card; `reset_launches` sets every count to 0.
+
+`torch.export` traces with fake tensors, which have no `data_ptr()`, so
+each forward kernel of the agent tick is also a `torch.library` custom op
+in the `lav_tpu_torch` namespace (`custom_op`), whose implementation is
+the wrapper's own launch (the plain version on CPU tensors) and whose
+fake gives the output's shape and dtype.  A wrapper calls its op only
+while `exporting()` is on (agent/export.py turns it on around the trace),
+so the exported program calls the ops, and eager ticks keep the direct
+call, which costs the host less.  A source may hold several
 kernels (`pillar_scatter_max.cu` holds the NEG-init and the zero-init
 canvas max and their gradients), and a kernel's forms are counted apart
 where a path must show which one ran (`crop_shared_q8_s2d`,
@@ -29,6 +38,7 @@ where a path must show which one ran (`crop_shared_q8_s2d`,
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import shutil
@@ -60,10 +70,8 @@ class Entry:
 
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# feat, pid, out, n_points, C, segments; the canvas max adds its scratch
-# buffer and that buffer's bytes
-_SCATTER = (_P, _P, _P, _LL, _I, _LL)
-_CANVAS = (*_SCATTER, _P, _LL)
+# feat, pid, out, n_points, C, segments, a scratch buffer and its bytes
+_CANVAS = (_P, _P, _P, _LL, _I, _LL, _P, _LL)
 ENTRIES = {e.symbol: e for e in (
     # src, grid, out, B, H, W, C, K, Ho, Wo, vec; the q8 forms take inv_s
     # after out
@@ -78,7 +86,7 @@ ENTRIES = {e.symbol: e for e in (
           "pillar_scatter_max_bf16", _CANVAS),
     Entry("pillar_scatter_max", "scatter_max_bf16", "scatter_max", _CANVAS),
     Entry("pillar_scatter_max", "scatter_max_f32", "scatter_max", _CANVAS),
-    Entry("pillar_scatter", "scatter_add_f32", "scatter_add", _SCATTER),
+    Entry("pillar_scatter", "scatter_add_f32", "scatter_add", _CANVAS),
     # g, grid, d_src, map (8 floats a crop), B, H, W, C, K, Ho, Wo, vec
     *(Entry("crop_shared_bwd", f"crop_shared_bwd_{dt}", k,
             (_P,) * 4 + (_I,) * 8)
@@ -109,6 +117,30 @@ LAUNCHES = {name: 0 for name in KERNELS}
 _libs: dict = {}
 _lock = threading.Lock()
 _open = ctypes.CDLL
+
+
+EXPORTING = False
+
+
+@contextlib.contextmanager
+def exporting():
+    """Route the kernel wrappers through their custom ops meanwhile."""
+    global EXPORTING
+    prev, EXPORTING = EXPORTING, True
+    try:
+        yield
+    finally:
+        EXPORTING = prev
+
+
+def custom_op(name: str, impl, fake):
+    """`impl` registered as torch.ops.lav_tpu_torch.<name>, returning new
+    tensors (no input is mutated), with `fake` as its fake implementation;
+    impl's annotations give the schema."""
+    op = torch.library.custom_op(f"lav_tpu_torch::{name}", impl,
+                                 mutates_args=())
+    op.register_fake(fake)
+    return op
 
 
 def reset_launches() -> None:

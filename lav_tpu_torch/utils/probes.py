@@ -26,8 +26,8 @@ under torch.use_deterministic_algorithms(True, warn_only=True),
 cudnn.deterministic and CUBLAS_WORKSPACE_CONFIG=:4096:8: the gradient
 leaves that still differ between the two runs and the operations
 PyTorch warns it runs without a deterministic form; then the same with
-the decoration sums (kernel scatter_add, the one kernel of the port on
-this path that adds with atomics) summed on the host instead.
+the decoration sums taken on the host (`scatter_add_plain`), which kernel
+scatter_add, summing each pillar in point order, equals bit for bit.
 """
 
 from __future__ import annotations

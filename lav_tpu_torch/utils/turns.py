@@ -5,6 +5,7 @@
     python3 -m lav_tpu_torch.utils.turns scatter --parent DIR [--diagnose]
         [--variants]
     python3 -m lav_tpu_torch.utils.turns train --parent DIR [--variants]
+    python3 -m lav_tpu_torch.utils.turns add --parent DIR
 
 Run on a machine with a card, from the root of a checkout; DIR is another
 checkout (for instance the parent commit unpacked with `git archive`).
@@ -47,6 +48,19 @@ and on one pillar of 5,000 points among the phase's others.
 in place of the compare-and-swap loop or atomic; their outputs differ, and
 are not compared.  `--variants` adds builds of this tree's source with one
 of its choices undone (`SCATTER_VARIANTS`); their outputs must equal.
+
+add: `scatter_add_f32` (`csrc/pillar_scatter.cu`), the parent's atomic
+kernel (6 arguments, into a zeroed output, as its wrapper launched it)
+against this tree's sorted one with its scratch buffer, on chip_smoke.py's
+phase ids, its runs of 16 and the agent's ids at tick 1 and at the first
+full-ring tick.  This tree's build must equal `scatter_add_plain` on the
+CPU and itself on a second launch, bit for bit; the parent's sums differ
+from run to run and are held to chip_smoke.py's rtol of the pillar's sum
+of magnitudes.  On the same ids it reads the canvas max's counting sort
+(`scatter_max`, keep_sort) from two launches: of the rows that hold 2
+points or more, how many it lists out of index order and how many the two
+launches list in different orders, which is whether that sort could serve
+the in-order sums.
 
 train: the distillation step's two backward kernels, in f32 and bf16,
 each build launched with the arguments of `native.ENTRIES` (the contracts
@@ -409,6 +423,10 @@ TRAIN_VARIANTS = {
         "kHotInFlight = 4, kRowInFlight = 2;",
         "kHotInFlight = 4, kRowInFlight = 4;")]),
 }
+# the parent's scatter entries without a scratch buffer: feat, pid, out,
+# n_points, C, segments
+_PARENT_SCATTER = (ctypes.c_void_p,) * 3 + (ctypes.c_longlong, ctypes.c_int,
+                                            ctypes.c_longlong)
 # the parent's source of each canvas-max entry
 _PARENT_SOURCE = {"scatter_max_bf16": "pillar_scatter",
                   "pillar_scatter_max_bf16": "pillar_scatter_max",
@@ -499,7 +517,7 @@ def scatter(parent: Path, diagnose: bool, variants: bool) -> dict:
                     source = _PARENT_SOURCE[symbol]
                     if source not in lib:
                         continue
-                    fn = entry(lib[source], symbol, native._SCATTER)
+                    fn = entry(lib[source], symbol, _PARENT_SCATTER)
                     out = torch.empty((parent_S, C), dtype=feat.dtype,
                                       device=dev)
                     args = (N, C, parent_S)
@@ -520,6 +538,110 @@ def scatter(parent: Path, diagnose: bool, variants: bool) -> dict:
         del feat, pid
         torch.cuda.empty_cache()
     return res
+
+
+def _add_inputs(dev):
+    """{label: (feat, pid, S)} of `scatter_add`: chip_smoke.py's phase ids
+    (xyz of the valid points and a count lane, a fifth in the dump row),
+    its runs of 16 and the agent's ids."""
+    E, P, G = cs.NUM_EGO_PROD, 2 * cs.MAX_POINTS_PROD * 3, 320 * 320
+    g = torch.Generator(device="cpu").manual_seed(4)
+    local = torch.randint(0, G // 8, (E, P), generator=g)
+    invalid = torch.rand((E, P), generator=g) < 0.2
+    pid = torch.where(invalid, torch.full_like(local, E * G),
+                      local + torch.arange(E)[:, None] * G)
+    run = torch.arange(E * P).reshape(E, P) // 16
+    hot = (run % 10 < 3) & ~invalid
+    runs = torch.where(hot, (run % 64) * 97 + torch.arange(E)[:, None] * G,
+                       pid)
+    xyz = torch.rand((E * P, 3), generator=g) * 60.0 - 20.0
+    keep = ~invalid.reshape(-1, 1)
+    feat = torch.cat([torch.where(keep, xyz, 0.0), keep.float()], dim=-1)
+    ins = {label: (feat.to(dev), p.reshape(-1).to(dev, torch.int32),
+                   E * G + 1)
+           for label, p in (("phase ids", pid), ("runs of 16", runs))}
+    for label, args in cs._agent_scatter_inputs(
+            torch, {"device": "cuda"})["add"].items():
+        ins[f"agent {label}"] = args
+    return ins
+
+
+def scatter_add(parent: Path) -> dict:
+    from lav_tpu_torch.ops.pillar import (
+        scatter_add_plain, scatter_add_scratch_bytes,
+    )
+
+    libs = {"this tree": build("this pillar_scatter",
+                               native.CSRC_DIR / "pillar_scatter.cu"),
+            "parent": build("parent pillar_scatter", parent / "lav_tpu_torch"
+                            / "csrc" / "pillar_scatter.cu")}
+    dev = torch.device("cuda")
+    res = {}
+    for label, (feat, pid, S) in _add_inputs(dev).items():
+        N, C = feat.shape
+        runs = {}
+        for name, lib in libs.items():
+            mine = name == "this tree"
+            fn = entry(lib, "scatter_add_f32", native.ENTRIES[
+                "scatter_add_f32"].argtypes if mine else _PARENT_SCATTER)
+            out = torch.empty((S, C), device=dev)
+            scratch = torch.empty(scatter_add_scratch_bytes(N, S),
+                                  dtype=torch.uint8, device=dev)
+            extra = (scratch.data_ptr(), scratch.numel()) if mine else ()
+
+            def go(fn=fn, out=out, extra=extra):
+                out.zero_()   # both wrappers zero the output
+                err = fn(feat.data_ptr(), pid.data_ptr(), out.data_ptr(), N,
+                         C, S, *extra, torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"scatter_add_f32: cudaError {err}")
+                return out
+            runs[name] = go
+        ref = scatter_add_plain(feat.cpu(), pid.cpu(), S)
+        mag = scatter_add_plain(feat.cpu().abs(), pid.cpu(), S)
+        first = runs["this tree"]().clone()
+        again = runs["this tree"]().cpu()
+        old = runs["parent"]().cpu()
+        n_max = int(ref[:, 3].max())
+        rtol = max(cs.SCATTER_ADD_RTOL, 2 * (n_max - 1) * 2.0 ** -24)
+        excess = ((old - ref).abs() - rtol * mag).max().item()
+        print(f"[add, {label}] this tree equals the plain version "
+              f"{torch.equal(first.cpu(), ref)}, itself on a second launch "
+              f"{torch.equal(first.cpu(), again)}; the parent's worst excess "
+              f"over {rtol:.2e} x sum|v| {excess:.3e}", flush=True)
+        if not (torch.equal(first.cpu(), ref) and torch.equal(
+                first.cpu(), again)) or excess > 0:
+            raise AssertionError(f"scatter_add {label}: outputs disagree")
+        # checked above: the parent's sums are not bit-reproducible
+        res[label] = in_turns(runs, f"add, {label}", compare=("this tree",))
+        order = _canvas_order(feat, pid, S)
+        print(f"[add, {label}] the canvas max's counting sort on these ids: "
+              f"{order}", flush=True)
+        res[label]["canvas_sort"] = order
+        del feat, pid, first
+        torch.cuda.empty_cache()
+    return res
+
+
+def _canvas_order(feat, pid, S: int) -> dict:
+    """The canvas max's sort of (feat, pid) from two launches of
+    `scatter_max(..., keep_sort=True)`: the rows holding 2 points or more,
+    those it lists out of index order, and those the two launches list in
+    different orders."""
+    from lav_tpu_torch.ops.pillar import read_canvas_sort, scatter_max
+
+    N, C = feat.shape
+    lists = [read_canvas_sort(scatter_max(feat, pid, S, keep_sort=True)[1],
+                              N, C, S, feat.element_size())
+             for _ in range(2)]
+    (off, a), (_, b) = [(o.cpu(), i.cpu()) for o, i in lists]
+    cnt = off[1:] - off[:-1]
+    row = torch.repeat_interleave(torch.arange(S), cnt)
+    down = (row[1:] == row[:-1]) & (a[1:] < a[:-1])
+    return dict(rows_2_or_more=int((cnt >= 2).sum()),
+                out_of_index_order=int(torch.unique(row[1:][down]).numel()),
+                differ_between_launches=int(
+                    torch.unique(row[a != b]).numel()))
 
 
 def build_many(specs: dict) -> dict:
@@ -721,7 +843,8 @@ def train(parent: Path, variants: bool) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("kernel", choices=("crop", "conv", "scatter", "train"))
+    ap.add_argument("kernel", choices=("crop", "conv", "scatter", "train",
+                                       "add"))
     ap.add_argument("--parent", required=True, type=Path,
                     help="the other checkout's root")
     ap.add_argument("--diagnose", action="store_true",
@@ -742,7 +865,8 @@ def main(argv=None) -> int:
            if args.kernel == "crop"
            else scatter(args.parent, args.diagnose, args.variants)
            if args.kernel == "scatter" else train(args.parent, args.variants)
-           if args.kernel == "train" else conv(args.parent))
+           if args.kernel == "train" else scatter_add(args.parent)
+           if args.kernel == "add" else conv(args.parent))
     print(json.dumps(res))
     return 0
 

@@ -230,7 +230,7 @@ def test_every_stage_runs_through_main(run, data):
 
 
 def test_refusals(data):
-    with pytest.raises(ValueError, match="one device"):
+    with pytest.raises(ValueError, match="1 ranks do not factor into 2"):
         cli.main(_args(data, "seg", "--dcn-slices", "2"))
     with pytest.raises(RuntimeError, match="ZERO steps"):
         cli.main(_args(data, "bra", "--batch-size", "64", "--num-epoch",

@@ -180,13 +180,14 @@ def test_launch_passes_pointers_whole_and_counts(stub, monkeypatch):
     # an int argument (C of the scatters) in its low 32 bits
     scatter = native.ENTRIES["scatter_add_f32"]
     native.launch(scatter, 0, 0x7F00_0000_1000, 0x7F00_0000_2000,
-                  0x7F00_0000_3000, 960000, 4, 16 * 102400 + 1)
+                  0x7F00_0000_3000, 960000, 4, 16 * 102400 + 1,
+                  0x7F00_0000_4000, 1 << 34)
     lib = stub[str(native._lib_path("pillar_scatter"))]
     args = lib.calls[-1][1]
     assert args[:4] == (0x7F00_0000_1000, 0x7F00_0000_2000,
                         0x7F00_0000_3000, 960000)
-    assert args[4] & 0xFFFFFFFF == 4 and args[5:] == (16 * 102400 + 1,
-                                                      0x7F00DEADBEEF)
+    assert args[4] & 0xFFFFFFFF == 4 and args[5:] == (
+        16 * 102400 + 1, 0x7F00_0000_4000, 1 << 34, 0x7F00DEADBEEF)
     assert native.LAUNCHES["scatter_add"] == 1
     native.reset_launches()
     assert not any(native.LAUNCHES.values())
