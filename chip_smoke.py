@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases build,cli
     python3 chip_smoke.py --phases build,eval
     python3 chip_smoke.py --phases build,export,parallel,diag
+    python3 chip_smoke.py --phases build,agent,production,export,tools
 
 Phases, each printing its own line and raising on failure:
   build   the card's name and power limit; nvcc builds every kernel
@@ -83,7 +84,10 @@ Phases, each printing its own line and raising on failure:
           cost the host
   agent   the full-width v2 agent (3 cameras 288x256, telephoto 192x480,
           8192 points per sweep) in f32 on the use_pallas route for 4
-          egos and 3 ticks on the card: its kernels launched, controls
+          egos: 12 ticks twice from one state, with no deterministic flag
+          set for the process, equal bit for bit in every output leaf
+          (ROADMAP C10); then 3 ticks on the card: its kernels launched,
+          controls
           finite and in range, ticks 1-2 of ego 0 equal to the port's CPU
           run within the stated tolerance; then a heatmap with more tied
           peaks than max_det (40 a map) decoded on the card equal to the
@@ -91,8 +95,10 @@ Phases, each printing its own line and raising on failure:
           sort) against torch.topk's and a top-k over an int64 key that
           breaks ties by index
   production  bench.py's configuration: v2_agent_setup(quant="mxu",
-          compute_dtype=bf16) with 16 egos and 10000 points per sweep for
-          3 ticks (then 5 more, timed): crop_shared_q8, scatter_max,
+          compute_dtype=bf16) with 16 egos and 10000 points per sweep:
+          12 ticks twice from one state, equal bit for bit with no
+          deterministic flag (as phase agent); then 3 ticks (then 5 more,
+          timed): crop_shared_q8, scatter_max,
           scatter_add and conv2d_int8 launched every tick, controls finite
           and in range, ticks 1-2 of ego 0 equal to the port's CPU run on
           the same weights and scales; the p50 tick
@@ -195,10 +201,10 @@ Phases, each printing its own line and raising on failure:
   export  agent/export.py: the f32 agent (4 egos) and lav_tpu's serving
           configuration (16 egos, bf16, "mxu" int8 with dynamic scales)
           exported on the card, loaded from the bytes, 6 ticks each
-          beside the eager tick with deterministic algorithms on: every
-          tick equal (torch.equal, NaN positions equal), the same launch
-          counts, the p50 of both; then a custom op's host cost per call
-          against the direct launch
+          beside the eager tick, no deterministic flag set for the
+          process: every tick equal (torch.equal, NaN positions equal),
+          the same launch counts, the p50 of both; then a custom op's
+          host cost per call against the direct launch
   parallel  parallel/: the distillation step (B = 4, f32) and the v2 BEV
           step (B = 8) at full width, 2 steps, without a process group,
           as 1 rank over NCCL (equal bit for bit) and as 2 ranks over
@@ -209,6 +215,14 @@ Phases, each printing its own line and raising on failure:
   diag    train/diagnostics.py: the lidar probe (distillation models,
           16384 points) and the BEV probe on the card against the CPU,
           detections slot by slot, plans at AGENT_ATOL / AGENT_RTOL
+  tools   lav_tpu's measurement tools (lav_tpu_torch/utils/): point_budget,
+          bench_skip (7 variants), bench_ablate, bench_chain,
+          bench_profile --quant mxu --trace and bench_train (full v2
+          B = 4, bev v2 B = 64, seg B = 32, bra v2 B = 8), each through
+          its main in this process at v2_config() full width with few
+          iterations, their JSON lines printed; lav_tpu's keys, finite
+          times, the port's kernels among the profiled classes; then
+          roofline_summary of bench_chain's whole chain
   profile (only when asked for) one warm tick of the agent under
           torch.profiler (--config f32, production, variants, both = the
           first two, or all): device time
@@ -236,7 +250,8 @@ AGENT_KERNELS = ("crop_shared", "pillar_scatter_max", "scatter_add")
 VARIANT_ABSENT = ("crop_shared_q8", "scatter_max", "pillar_scatter_max")
 ALL_PHASES = ("build", "crop", "pillar", "scatter", "conv_int8", "gather",
               "agent", "production", "variants", "train_kernels", "train",
-              "privileged", "cli", "eval", "export", "parallel", "diag")
+              "privileged", "cli", "eval", "export", "parallel", "diag",
+              "tools")
 EXTRA_PHASES = ("profile",)
 NUM_EGO = 4
 MAX_POINTS = 8192
@@ -1835,6 +1850,42 @@ def _run_ticks(step, models, state, obs, n):
     return out
 
 
+REPEAT_TICKS = 12
+
+
+def _global_flags(torch):
+    return (torch.are_deterministic_algorithms_enabled(),
+            torch.backends.cudnn.deterministic)
+
+
+def _repeat_check(torch, ctx, phase, step, models, state, obs):
+    """The tick repeats itself (ROADMAP C10): REPEAT_TICKS ticks twice from
+    `state`, with no deterministic flag set for the process before,
+    during or after them, must give every output leaf (controls, state,
+    aux) equal bit for bit, NaN positions equal (`_same_leaves`)."""
+    if any(_global_flags(torch)):
+        raise AssertionError(f"{phase}: a deterministic flag is set for the "
+                             f"process before the repeat check: "
+                             f"{_global_flags(torch)}")
+    runs = []
+    for _ in range(2):
+        st, ticks = state, []
+        for _ in range(REPEAT_TICKS):
+            ctrl, st, aux = step(models, st, obs)
+            ticks.append((tuple(ctrl), tuple(st), aux))
+        runs.append(ticks)
+    same = [_same_leaves(torch, a, b) for a, b in zip(*runs)]
+    flags = _global_flags(torch)
+    log(phase, f"{REPEAT_TICKS} ticks twice from one state, no "
+        f"deterministic flag for the process (after them: algorithms "
+        f"{flags[0]}, cudnn {flags[1]}): ticks equal {same}")
+    if not all(same) or any(flags):
+        raise AssertionError(f"{phase}: the tick does not repeat itself bit "
+                             f"for bit, or set a process-wide flag: {same}, "
+                             f"{flags}")
+    ctx[f"{phase}_repeats"] = True
+
+
 def phase_agent(ctx):
     import numpy as np
     import torch
@@ -1845,6 +1896,7 @@ def phase_agent(ctx):
     step, models, state, obs, _ = v2_agent_setup(
         max_points=MAX_POINTS, num_ego=NUM_EGO, device=ctx["device"], seed=0,
         use_pallas=True)
+    _repeat_check(torch, ctx, "agent", step, models, state, obs)
     native.reset_launches()
     tick_ms, outs = [], []
     for _ in range(3):
@@ -1950,6 +2002,8 @@ def _bench_tick(ctx, phase, knobs, n_convs, at_least, absent):
         raise AssertionError(f"{phase}: the configuration has the wrong int8 "
                              f"convs ({len(convs)}, uncalibrated {unseen})")
     cpu_models = copy.deepcopy(models).to("cpu")  # same weights and scales
+    if phase == "production":
+        _repeat_check(torch, ctx, phase, step, models, state, obs)
 
     names = tuple(at_least) + ("conv2d_int8",) + tuple(absent)
     native.reset_launches()
@@ -3601,26 +3655,15 @@ def phase_export(ctx):
     eager tick on the same models and observations: every tick's
     controls, state and aux equal (NaN positions equal), the same launch
     counts of every kernel over the first 3 ticks, and the p50 of ticks
-    2+ of both on the host clock; all with PyTorch's deterministic
-    algorithms on.  Then what a custom op's call costs the host against
-    the direct launch (`_op_dispatch_costs`)."""
+    2+ of both on the host clock; no deterministic flag is set for the
+    process (both ticks repeat themselves, ROADMAP C10).  Then what a
+    custom op's call costs the host against the direct launch
+    (`_op_dispatch_costs`)."""
     import torch
 
     dev = ctx["device"]
     res = {}
-    # the eager tick on the card differs from itself in the last bits
-    # without PyTorch's deterministic algorithms (ROADMAP C10): compare
-    # with them on
-    flags = (torch.are_deterministic_algorithms_enabled(),
-             torch.is_deterministic_algorithms_warn_only_enabled(),
-             torch.backends.cudnn.deterministic)
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    torch.backends.cudnn.deterministic = True
-    try:
-        _export_runs(torch, ctx, dev, res)
-    finally:
-        torch.use_deterministic_algorithms(flags[0], warn_only=flags[1])
-        torch.backends.cudnn.deterministic = flags[2]
+    _export_runs(torch, ctx, dev, res)
     res["dispatch"] = _op_dispatch_costs(torch, ctx)
     ctx["export"] = res
 
@@ -4064,6 +4107,99 @@ def _camera_conv_cases(torch, ctx):
     return rows
 
 
+TOOLS_RUNS = (
+    ("point_budget", []),
+    ("bench_skip", ["--iters", "2"]),
+    ("bench_ablate", ["--iters", "2"]),
+    ("bench_chain", ["--iters", "2"]),
+    ("bench_profile", ["--quant", "mxu", "--trace"]),
+    ("bench_train", ["--stage", "full", "--v2", "--batch-size", "4"]),
+    ("bench_train", ["--stage", "bev", "--v2"]),
+    ("bench_train", ["--stage", "seg", "--batch-size", "32"]),
+    ("bench_train", ["--stage", "bra", "--v2", "--batch-size", "8"]),
+)
+TOOLS_TRAIN_STEPS = (1, 2)  # bench_train's warm-up and timed steps here
+# each tool's keys, as lav_tpu's prints them for the same flags
+TOOLS_KEYS = {
+    "bench_ablate": {"seg_ms", "brake_ms", "paint_ms", "pillar_ms",
+                     "lidar_model_ms", "det_decode_ms", "planner_ms",
+                     "num_ego", "dtype"},
+    "bench_chain": {f"thru_{k}_ms" for k in ("stack", "pillar", "lidar",
+                                              "decode", "plan")},
+    "bench_profile": {"num_ego", "gflops_per_tick", "gbytes_per_tick",
+                      "gflops_per_ego_step", "temp_mb", "argument_mb",
+                      "output_mb", "classes_ms"},
+    "bench_train": {"stage", "v2", "batch_size", "dtype", "step_ms",
+                    "samples_per_sec"},
+}
+
+
+def phase_tools(ctx):
+    """lav_tpu's measurement tools, ported (`lav_tpu_torch/utils/`), each
+    run in this process through its `main` at v2_config() full width with
+    few iterations (TOOLS_RUNS; bench_train TOOLS_TRAIN_STEPS steps): their
+    lines print above; each result must hold lav_tpu's keys with finite
+    times, the skip ablation every variant, and the profiled tick's
+    kernels, by name (`roofline.hand_class`), the port's crop, scatter
+    and int8 conv kernels.  Then `roofline.roofline_summary` of the
+    bench_chain's whole chain (16 egos, bf16): FLOPs of PyTorch's
+    operators, the port's kernels by name with FLOPs null."""
+    import importlib
+
+    import torch
+
+    from lav_tpu_torch.utils import bench_chain, bench_train, native, roofline
+
+    dev = ctx["device"]
+    native.reset_launches()
+    saved = (bench_train.WARMUP, bench_train.ITERS)
+    bench_train.WARMUP, bench_train.ITERS = TOOLS_TRAIN_STEPS
+    out = {}
+    try:
+        for name, argv in TOOLS_RUNS:
+            t0 = time.perf_counter()
+            mod = importlib.import_module(f"lav_tpu_torch.utils.{name}")
+            res = (mod.summary() if name == "point_budget" else
+                   mod.main(argv + ["--device", dev]))
+            log("tools", f"{name} {' '.join(argv)}: "
+                f"{time.perf_counter() - t0:.1f} s")
+            out.setdefault(name, []).append(res)
+            keys = TOOLS_KEYS.get(name)
+            times = [v for k, v in res.items() if k.endswith("_ms")
+                     and isinstance(v, float)]
+            if keys is not None and not keys <= set(res) or \
+                    not all(math.isfinite(v) and v > 0 for v in times):
+                raise AssertionError(f"tools: {name} {argv} printed {res}")
+    finally:
+        bench_train.WARMUP, bench_train.ITERS = saved
+    skip = out["bench_skip"][0]
+    if len(skip) != 7:
+        raise AssertionError(f"tools: the skip ablation lacks a variant: "
+                             f"{skip}")
+    hand = out["bench_profile"][0]["hand_kernels"]
+    if not {"hand_crop", "hand_scatter", "hand_conv_int8"} <= {
+            roofline.hand_class(name) for name in hand}:
+        raise AssertionError(f"tools: the profiled tick lacks a kernel of "
+                             f"the port: {sorted(hand)}")
+
+    cfg = bench_chain.v2_config()
+    models = bench_chain.chain_models(cfg).to(dev)
+    inp = bench_chain.chain_inputs(cfg, bench_chain.NUM_EGO,
+                                   bench_chain.SWEEP_POINTS, dev)
+    with torch.no_grad():
+        summary = roofline.roofline_summary(bench_chain.stage_plan,
+                                            (models, cfg, inp), iters=2)
+    print(json.dumps({"roofline_summary": summary}), flush=True)
+    hand = summary["hand_kernels"]
+    if summary["flops"] <= 0 or not hand or any(
+            h["flops"] is not None for h in hand.values()):
+        raise AssertionError(f"tools: roofline_summary {summary}")
+    ctx["launches_tools"] = dict(native.LAUNCHES)
+    log("tools", f"launches {ctx['launches_tools']} on {ctx.get('smi', '?')}")
+    del models, inp
+    torch.cuda.empty_cache()
+
+
 def kernels_line(ctx):
     """Every kernel with its numbers; `launches` counts the main path that
     runs it: the f32 agent for crop_shared and pillar_scatter_max, the
@@ -4084,8 +4220,9 @@ def kernels_line(ctx):
     later paths' counts: `export_launches` (the loaded programs' first 3
     ticks, f32 and serving), `parallel_launches` (the data-parallel
     phase's steps without a process group), `diag_launches` (the two
-    probes on the card) and `all_launches` (the quant="all" tick, 3
-    ticks)."""
+    probes on the card), `all_launches` (the quant="all" tick, 3
+    ticks) and `tools_launches` (phase tools: the measurement tools'
+    runs)."""
     crop, scatter = ctx.get("crop", {}), ctx.get("scatter", {})
     train = ctx.get("train_kernels", {})
     bwd = ctx.get("scatter_bwd", {})
@@ -4147,7 +4284,7 @@ def kernels_line(ctx):
         if "launches_evaluator" in ctx:
             rows[-1]["eval_launches"] = ctx["launches_evaluator"].get(name,
                                                                       0)
-        for path in ("export", "parallel", "diag", "all"):
+        for path in ("export", "parallel", "diag", "all", "tools"):
             if f"launches_{path}" in ctx:
                 rows[-1][f"{path}_launches"] = ctx[f"launches_{path}"].get(
                     name, 0)

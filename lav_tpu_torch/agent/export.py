@@ -11,7 +11,9 @@ it without the model code.
     step = load_agent_step(blob)                     # (state, obs) -> ...
 
 The program calls the port's kernels as the custom ops of the
-`lav_tpu_torch` namespace (`utils/native.py`), and the tick's pytrees
+`lav_tpu_torch` namespace (`utils/native.py`), and its float transposed
+convs as one too (`nn/layers.py::conv_transpose2d`, which scopes cuDNN's
+deterministic flag to them), and the tick's pytrees
 (`AgentState`, `Control`, `EKFState`) are registered under stable names;
 loading imports the modules that register both, as lav_tpu registers its
 pytrees in `load_agent_step`.  The program runs on the device it was
@@ -115,10 +117,12 @@ def export_agent_step(cfg: LAVConfig, models, *, max_points: int = 8192,
 
 def load_agent_step(blob: bytes) -> Callable:
     """The exported tick as a callable (state, obs) -> (Control,
-    AgentState, aux)."""
-    # registers the kernels' custom ops that the program calls
+    AgentState, aux).  Its float transposed convs are the custom op of
+    `layers.conv_transpose2d`, so they, and nothing else, run under
+    cuDNN's deterministic flag, as in the eager tick."""
+    # registers the custom ops that the program calls
     from lav_tpu_torch.core import warp  # noqa: F401
-    from lav_tpu_torch.nn import quant  # noqa: F401
+    from lav_tpu_torch.nn import layers, quant  # noqa: F401
     from lav_tpu_torch.ops import pillar  # noqa: F401
 
     register_pytrees()

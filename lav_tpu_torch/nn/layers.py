@@ -22,7 +22,9 @@ an explicit `torch.Generator`.
 
 from __future__ import annotations
 
+import contextlib
 import math
+from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -30,6 +32,7 @@ from torch import nn
 
 from lav_tpu_torch import parallel
 from lav_tpu_torch.nn import quant
+from lav_tpu_torch.utils import native
 
 
 def _uniform(gen, shape, bound: float) -> torch.Tensor:
@@ -47,6 +50,43 @@ def _bias_bound(fan_in: int) -> float:
 
 def _pair(v):
     return (v, v) if isinstance(v, int) else tuple(v)
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN restricted to its deterministic algorithms inside the block,
+    its flag put back after it.  On the card cuDNN's default algorithm for
+    a float transposed conv (the ERFNet upsamplers' and the lidar
+    backbone's and BEV head's, f32) adds its terms in an order that
+    changes from run to run, so the agent tick would not repeat itself;
+    `ConvTranspose2d` runs inside this scope, and nothing sets the flag
+    for the rest of the process.  The flag is the process's own while the
+    block runs."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def conv_transpose2d(x: torch.Tensor, w: torch.Tensor,
+                     b: Optional[torch.Tensor], stride: List[int],
+                     padding: List[int],
+                     output_padding: List[int]) -> torch.Tensor:
+    """F.conv_transpose2d under `cudnn_deterministic`."""
+    with cudnn_deterministic():
+        return F.conv_transpose2d(x, w, b, stride, padding, output_padding)
+
+
+def _conv_transpose2d_fake(x, w, b, stride, padding, output_padding):
+    return F.conv_transpose2d(x, w, b, stride, padding, output_padding)
+
+
+# the same as a custom op, for export: a flag set in Python is not in an
+# exported graph, so the loaded program keeps the scope through the op
+_CONV_T_OP = native.custom_op("conv_transpose2d_deterministic",
+                              conv_transpose2d, _conv_transpose2d_fake)
 
 
 class Linear(nn.Module):
@@ -135,7 +175,9 @@ class ConvTranspose2d(nn.Module):
     `quantize_` switches it to lav_tpu's int8 form (`LAV_INT8_UPCONV=1`,
     `quant.conv_transpose2d_int8`): buffers `w_int8`, the flipped
     equivalent conv's kernel (O, KH, KW, I) with per-output-channel scales
-    `w_scale` (O,), and `x_scale` once calibrated."""
+    `w_scale` (O,), and `x_scale` once calibrated.  The float form runs
+    under `cudnn_deterministic` (`conv_transpose2d`, and its custom op
+    while exporting), so it repeats itself bit for bit."""
 
     def __init__(self, cin: int, cout: int, ksize, stride=1, padding=0,
                  output_padding=0, bias: bool = True, gen=None):
@@ -167,8 +209,9 @@ class ConvTranspose2d(nn.Module):
             y = quant.conv_transpose2d_int8(self, nchw_to_nhwc(x))
             return nhwc_to_nchw(y)
         b = None if self.b is None else self.b.to(x.dtype)
-        return F.conv_transpose2d(x, self.w.to(x.dtype), b, self.stride,
-                                  self.padding, self.output_padding)
+        conv = _CONV_T_OP if native.EXPORTING else conv_transpose2d
+        return conv(x, self.w.to(x.dtype), b, list(self.stride),
+                    list(self.padding), list(self.output_padding))
 
 
 class BatchNorm(nn.Module):

@@ -1,8 +1,10 @@
-"""Two measurements of the distillation step on the card, each run once
-to answer a question rather than on every smoke run.
+"""Measurements on the card, each run once to answer a question rather
+than on every smoke run.
 
     python3 -m lav_tpu_torch.utils.probes memory
     python3 -m lav_tpu_torch.utils.probes determinism
+    python3 -m lav_tpu_torch.utils.probes repeat [--config f32|production]
+    python3 -m lav_tpu_torch.utils.probes ticks --parent DIR [--turns N]
 
 Run on a machine with a card, from the root of a checkout.  Each prints
 the card's name and power limit first; TF32 is off, as in
@@ -28,12 +30,28 @@ leaves that still differ between the two runs and the operations
 PyTorch warns it runs without a deterministic form; then the same with
 the decoration sums taken on the host (`scatter_add_plain`), which kernel
 scatter_add, summing each pillar in point order, equals bit for bit.
+
+repeat: whether the agent tick repeats itself bit for bit.  The f32
+tick (4 egos, 8192 points a sweep, use_pallas=True) and the production
+tick (16 egos, 10000 points, bf16, int8 "mxu") run twice for
+REPEAT_TICKS ticks from the same state, with no deterministic flag set
+by the caller; the output leaves (controls, state, aux) that differ
+between the two runs are listed with the first tick they differ at.
+
+ticks: the p50 tick and ego-ticks/s of the f32 tick (4 egos) and the
+production tick (16 egos) of this tree and of another checkout DIR (for
+instance the parent commit unpacked with `git archive`), each in a
+process of its own started in its tree, in turns (DIR, this, this, DIR,
+`--turns` times): TICKS ticks a configuration, the first two left out;
+each process also reports whether it found PyTorch's deterministic
+algorithms or cuDNN's deterministic flag set after its ticks.
 """
 
 from __future__ import annotations
 
 import argparse
 import functools
+import json
 import os
 import statistics
 import subprocess
@@ -43,16 +61,11 @@ import warnings
 
 import torch
 
+from lav_tpu_torch.utils.profiling import card_line
+
 MAX_POINTS = 16384       # lav_tpu/utils/bench_train.py --max-points
 B_REF = 32               # lav_tpu/train/cli.py:239, the full stage's batch
 GIB = 2 ** 30
-
-
-def _card() -> str:
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    return smi.stdout.strip().splitlines()[0] if smi.stdout else "?"
 
 
 def memory() -> None:
@@ -204,9 +217,147 @@ def determinism() -> None:
             pillar.scatter_add = real
 
 
+REPEAT_TICKS = 12
+
+
+def _tick_setup(config: str):
+    from lav_tpu_torch.agent.setup import v2_agent_setup
+
+    kw = (dict(num_ego=4, max_points=8192, use_pallas=True)
+          if config == "f32" else
+          dict(num_ego=16, max_points=10000, quant="mxu",
+               compute_dtype=torch.bfloat16))
+    step, models, state, obs, _ = v2_agent_setup(device="cuda", seed=0, **kw)
+    return step, models, state, obs
+
+
+def _named_leaves(tree):
+    from torch.utils import _pytree
+
+    pairs, _ = _pytree.tree_flatten_with_path(tree)
+    return [(_pytree.keystr(p), x) for p, x in pairs]
+
+
+def _ticks(step, models, state, obs):
+    outs, ms = [], []
+    for _ in range(REPEAT_TICKS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ctrl, state, aux = step(models, state, obs)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(_named_leaves((ctrl, state, aux)))
+    return outs, ms
+
+
+def _equal(x, y) -> bool:
+    if x.is_floating_point():
+        return (torch.equal(torch.isnan(x), torch.isnan(y))
+                and torch.equal(torch.nan_to_num(x), torch.nan_to_num(y)))
+    return torch.equal(x, y)
+
+
+def _differing(a, b) -> dict:
+    """{leaf: [first tick it differs at, max |difference|]}."""
+    out = {}
+    for t, (ta, tb) in enumerate(zip(a, b)):
+        for (name, x), (_, y) in zip(ta, tb):
+            if not _equal(x, y):
+                d = (x.double() - y.double()).abs().nan_to_num().max()
+                row = out.setdefault(name, [t + 1, 0.0])
+                row[1] = max(row[1], float(d))
+    return out
+
+
+def repeat(config: str) -> None:
+    step, models, state, obs = _tick_setup(config)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        a, ms_a = _ticks(step, models, state, obs)
+        b, ms_b = _ticks(step, models, state, obs)
+    ops = sorted({str(w.message)[:120] for w in caught
+                  if "deterministic" in str(w.message)})
+    bad = _differing(a, b)
+    first = min((v[0] for v in bad.values()), default=None)
+    worst = max((v[1] for v in bad.values()), default=0.0)
+    print(f"repeat: {config}, {REPEAT_TICKS} ticks twice from one state, "
+          f"no flag: {len(bad)} of {len(a[0])} leaves differ (first at "
+          f"tick {first}: "
+          f"{sorted(k for k, v in bad.items() if v[0] == first)}), max "
+          f"|diff| {worst:.3e}; p50 tick "
+          f"{statistics.median(ms_a[1:]):.3f} / "
+          f"{statistics.median(ms_b[1:]):.3f} ms; warnings {ops}",
+          flush=True)
+    del a, b
+    torch.cuda.empty_cache()
+
+
+TICKS = 64
+_TICKS_CHILD = r"""
+import json, statistics, time
+import torch
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+from lav_tpu_torch.agent.setup import v2_agent_setup
+out = {}
+for name, kw in (("f32", dict(num_ego=4, max_points=8192, use_pallas=True)),
+                 ("production", dict(num_ego=16, max_points=10000,
+                                     quant="mxu",
+                                     compute_dtype=torch.bfloat16))):
+    step, models, state, obs, _ = v2_agent_setup(device="cuda", seed=0, **kw)
+    ms = []
+    for _ in range(%d):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, state, _ = step(models, state, obs)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    p50 = statistics.median(ms[2:])
+    out[name] = dict(p50_ms=p50, ego_ticks_per_s=kw["num_ego"] * 1e3 / p50,
+                     flags_after=[torch.are_deterministic_algorithms_enabled(),
+                                  torch.backends.cudnn.deterministic])
+    del step, models, state, obs
+    torch.cuda.empty_cache()
+print(json.dumps(out))
+"""
+
+
+def ticks(parent: str, turns: int = 1) -> None:
+    here = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    trees = [("parent", os.path.abspath(parent)), ("this tree", here)]
+    order = (trees + trees[::-1]) * turns
+    rows = {}
+    for label, tree in order:
+        env = dict(os.environ, PYTHONPATH=tree)
+        run = subprocess.run([sys.executable, "-c", _TICKS_CHILD % TICKS],
+                             cwd=tree, env=env, capture_output=True,
+                             text=True, timeout=600)
+        if run.returncode:
+            raise RuntimeError(f"{label} ({tree}) failed:\n{run.stderr}")
+        res = json.loads(run.stdout.strip().splitlines()[-1])
+        print(f"ticks: {label}: " + "; ".join(
+            f"{k} p50 {v['p50_ms']:.3f} ms, {v['ego_ticks_per_s']:.2f} "
+            f"ego-ticks/s, flags after {v['flags_after']}"
+            for k, v in res.items()), flush=True)
+        for k, v in res.items():
+            rows.setdefault((label, k), []).append(v["p50_ms"])
+    for (label, k), v in rows.items():
+        print(f"ticks: {k}, {label}: p50 {[round(x, 3) for x in v]} ms",
+              flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("probe", choices=("memory", "determinism"))
+    ap.add_argument("probe", choices=("memory", "determinism", "repeat",
+                                      "ticks"))
+    ap.add_argument("--parent", default=None,
+                    help="the other checkout the ticks probe times")
+    ap.add_argument("--turns", type=int, default=1,
+                    help="rounds of (parent, this, this, parent)")
+    ap.add_argument("--config", default="both",
+                    choices=("f32", "production", "both"),
+                    help="the tick(s) the repeat probe runs")
     args = ap.parse_args(argv)
     if args.probe == "determinism":   # read when cuBLAS starts
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -215,11 +366,17 @@ def main(argv=None) -> int:
         return 2
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    print(_card(), flush=True)
+    print(card_line("cuda"), flush=True)
     if args.probe == "memory":
         memory()
-    else:
+    elif args.probe == "determinism":
         determinism()
+    elif args.probe == "ticks":
+        ticks(args.parent, args.turns)
+    else:
+        for config in (("f32", "production") if args.config == "both"
+                       else (args.config,)):
+            repeat(config)
     return 0
 
 

@@ -1,5 +1,5 @@
 """Step timing and device traces (counterpart of
-`lav_tpu/utils/profiling.py`).
+`lav_tpu/utils/profiling.py`), and what the measurement tools share.
 
 `StepTimer` measures what a closed-loop user waits for: the host's wall
 clock from `start` to the moment a step's result is ready, host work
@@ -10,10 +10,49 @@ result's tensors, as `jax.block_until_ready` waits for lav_tpu's.
 from __future__ import annotations
 
 import contextlib
+import subprocess
 import time
 from typing import Dict, List, Optional
 
 import torch
+
+
+def synchronize() -> None:
+    """Wait for the card's queued work, where the process uses a card."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+def timeit(fn, *args, iters: int = 10, warmup: int = 2) -> float:
+    """ms a call of `fn(*args)`: `warmup` calls, then the host clock over
+    `iters` calls ending in a synchronize (lav_tpu's `timeit`, which ends
+    in `block_until_ready`)."""
+    for _ in range(warmup):
+        fn(*args)
+    synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn(*args)
+    synchronize()
+    return (time.perf_counter() - t0) / iters * 1000
+
+
+def card_line(device=None) -> str:
+    """What a measurement ran on: the card's name and power limit as
+    `nvidia-smi --query-gpu=name,power.limit` gives them, or `cpu`."""
+    dev = torch.device("cuda" if device is None and torch.cuda.is_available()
+                       and torch.cuda.is_initialized() else device or "cpu")
+    if dev.type != "cuda":
+        return "cpu"
+    try:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60).stdout.splitlines()
+    except (OSError, subprocess.TimeoutExpired):
+        smi = []
+    idx = dev.index or 0
+    return (smi[idx].strip() if len(smi) > idx else
+            f"{torch.cuda.get_device_name(idx)}, power limit not read")
 
 
 @contextlib.contextmanager

@@ -105,9 +105,11 @@ def test_loaded_tick_equals_eager_tick(exported, config, monkeypatch):
     _, models, programs = exported
     step, ops, kw = programs[config]
     # uncalibrated int8 takes float crops (crop_shared_q8 needs a static
-    # scale)
+    # scale); the float transposed convs are an op too (their scoped
+    # cuDNN flag, ROADMAP C10)
     want = {"lav_tpu_torch::scatter_add", "lav_tpu_torch::scatter_max",
-            "lav_tpu_torch::crop_shared"}
+            "lav_tpu_torch::crop_shared",
+            "lav_tpu_torch::conv_transpose2d_deterministic"}
     assert ops == (want | {"lav_tpu_torch::conv2d_int8"} if kw else want)
     eager_models = TX.copy.deepcopy(models)
     if kw:
