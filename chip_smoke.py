@@ -29,7 +29,10 @@ Phases, each printing its own line and raising on failure:
           crop_shared's narrow route, f32 and bf16: C = 1, 3 and 9 with
           the source, and through the C entry the output too, one
           element off a 16-byte boundary, and C = 5; every plain case
-          timed host-paced and device-only beside F.grid_sample
+          timed host-paced and device-only beside F.grid_sample; and
+          core.warp.grid_sample (one crop an item) on the f32 agent's
+          sources: crop_shared launched once, equal to the CPU within
+          CROP_F32_ATOL
   pillar  kernel pillar_scatter_max against its plain version at the
           agent's shapes (4 x 49152 points, 64 channels, 4 x 102401
           pillars) with masked points at NEG in the in-range dump slots,
@@ -77,11 +80,15 @@ Phases, each printing its own line and raising on failure:
           brake net's ResNet on both images), each distinct call exact
           against the plain version on its own inputs, and timed
   gather  kernel take_along_rows (the gather probe, scripts/exp_gather.py)
-          at the probe's six (S, L, dtype) cases; must be exact, and give
-          0 for an index outside [0, S); host-paced and device-only times
-          and host us per call beside torch.gather's, the device-only
-          time with the rows in order, and what the pieces of a launch
-          cost the host
+          at the probe's six (S, L, dtype) cases: bit for bit the plain
+          version with the rows random and in order; lav_tpu's contract
+          at out-of-range indices (-1 and -S wrap, -S - 1, S, 2^20 and
+          -2^20 give NaN), f32 and bf16; host-paced and device-only times
+          and host us per call beside torch.gather's, and the
+          rows-in-order device-only times;
+          native.launch's private device and stream reads against the
+          public ones (default and side stream), and what the pieces of a
+          launch cost the host
   agent   the full-width v2 agent (3 cameras 288x256, telephoto 192x480,
           8192 points per sweep) in f32 on the use_pallas route for 4
           egos: 12 ticks twice from one state, with no deterministic flag
@@ -238,6 +245,7 @@ the repository, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import re
@@ -545,6 +553,7 @@ def phase_crop(ctx):
         del src, grid, out, ref
         torch.cuda.empty_cache()
     res["narrow"] = _crop_narrow(torch, ctx, dev)
+    _crop_grid_sample(torch, ctx, dev)
     bev = _crop_bev(torch, ctx, dev)
     q8 = _crop_q8(torch, ctx, dev)
     res["q8"], res["q8_s2d"] = q8["q8"], q8["s2d"]
@@ -553,6 +562,32 @@ def phase_crop(ctx):
     res["float32"].update({f"bev_{k}": v for k, v in bev.items()})
     res["float32"]["narrow"] = res.pop("narrow")
     ctx["crop"] = res
+
+
+def _crop_grid_sample(torch, ctx, dev):
+    """core.warp.grid_sample (lav_tpu's per-item sampler, one crop an
+    item) on the card: crop_shared launched once, counted, and its output
+    against the CPU's on the same inputs (the f32 agent's sources, each
+    ego's ego-centred 96x96 crop)."""
+    from lav_tpu_torch.core.warp import grid_sample
+    from lav_tpu_torch.utils import native
+
+    src, grid = _agent_crop_inputs(torch, dev, torch.float32)
+    grid = grid[:, -1].contiguous()        # (B, Ho, Wo, 2)
+    native.reset_launches()
+    out = grid_sample(src, grid)
+    torch.cuda.synchronize()
+    ctx["launches_grid_sample"] = {"crop_shared": native.LAUNCHES[
+        "crop_shared"]}
+    ref = grid_sample(src.cpu(), grid.cpu())
+    err = (out.cpu() - ref).abs().max().item()
+    log("crop", f"grid_sample f32 {tuple(src.shape)} at {tuple(grid.shape)}"
+        f": crop_shared launched {ctx['launches_grid_sample']} time(s), "
+        f"card vs CPU max_abs_err {err:.3e} (tol {CROP_F32_ATOL:.0e})")
+    if ctx["launches_grid_sample"]["crop_shared"] != 1 or not (
+            err <= CROP_F32_ATOL and out.shape == ref.shape):
+        raise AssertionError("grid_sample on the card: no crop_shared "
+                             "launch, or it disagrees with the CPU")
 
 
 def _crop_narrow(torch, ctx, dev):
@@ -1667,6 +1702,7 @@ def phase_conv_int8(ctx):
         f"{var['bound_ms']:.4f} ms on {ctx.get('smi', '?')}")
 
 
+HOST_ROUNDS = 5             # phase gather's host costs timed in turns
 GATHER_CASES = ((8, 128, "float32"), (512, 128, "float32"),
                 (9216, 128, "float32"), (9216, 128, "bfloat16"),
                 (9216, 256, "float32"), (25600, 128, "float32"))
@@ -1675,7 +1711,9 @@ GATHER_CASES = ((8, 128, "float32"), (512, 128, "float32"),
 
 def phase_gather(ctx):
     """The gather probe: take_along_rows at the probe's six cases, driven
-    once with the counts at 0, then each checked and timed."""
+    once with the counts at 0, then each checked (rows random and in
+    order) and timed; then lav_tpu's contract at out-of-range indices
+    (ROADMAP C11) and what a launch costs the host."""
     import torch
 
     from lav_tpu_torch.ops.gather import take_along_rows, take_along_rows_plain
@@ -1698,14 +1736,22 @@ def phase_gather(ctx):
         raise AssertionError(f"take_along_rows launched {launches} times for "
                              f"{len(cases)} cases")
     keys = ("ms", "device_ms", "host_us", "plain_ms", "library_ms",
-            "library_device_ms", "library_host_us", "bound_ms")
+            "library_device_ms", "library_host_us", "bound_ms",
+            "ordered_device_ms", "ordered_bound_ms")
     tot = dict.fromkeys(keys, 0.0)
     per_case = []
     for (S, L, dt, x, idx), out in zip(cases, outs):
-        ref = take_along_rows_plain(x, idx)
-        if not torch.equal(out, ref):
-            raise AssertionError(f"take_along_rows ({S}, {L}) {dt} disagrees "
-                                 "with plain")
+        esize = x.element_size()
+        # the same rows in order (idx[i, l] = i): the bytes of a full x,
+        # but each warp's 32 reads of x fall on one sector run
+        rows = torch.arange(S, dtype=torch.int32, device=dev)[:, None]
+        rows = rows.expand(S, L).contiguous()
+        for label, got, want in (
+                ("rows random", out, take_along_rows_plain(x, idx)),
+                ("rows in order", take_along_rows(x, rows), x)):
+            if not torch.equal(got, want):
+                raise AssertionError(f"take_along_rows ({S}, {L}) {dt}, "
+                                     f"{label}: not equal bit for bit")
         idx64 = idx.long()
         r = dict(
             ms=cuda_ms(torch, lambda: take_along_rows(x, idx), iters=20),
@@ -1717,23 +1763,16 @@ def phase_gather(ctx):
                                iters=20),
             library_device_ms=device_ms(torch,
                                         lambda: torch.gather(x, 0, idx64)),
-            library_host_us=host_us(torch, lambda: torch.gather(x, 0, idx64)))
+            library_host_us=host_us(torch, lambda: torch.gather(x, 0, idx64)),
+            ordered_device_ms=device_ms(torch,
+                                        lambda: take_along_rows(x, rows)),
+            ordered_bound_ms=bound_ms(
+                rows.numel() * 4 + 2 * x.numel() * esize)[0])
         # idx read and out written once; of x only the distinct (row,
         # column) pairs this idx names
         hit = torch.unique(idx64 * L + torch.arange(L, device=dev)).numel()
-        nbytes = idx.numel() * 4 + (out.numel() + hit) * x.element_size()
+        nbytes = idx.numel() * 4 + (out.numel() + hit) * esize
         r["bound_ms"], by = bound_ms(nbytes)
-        # the same kernel with the rows in order (idx[i, l] = i): the bytes
-        # of a full x, but each warp's 32 reads of x fall on one sector run
-        rows = torch.arange(S, dtype=torch.int32, device=dev)[:, None]
-        rows = rows.expand(S, L).contiguous()
-        if not torch.equal(take_along_rows(x, rows), x):
-            raise AssertionError(f"take_along_rows ({S}, {L}) {dt}: rows in "
-                                 "order do not give x")
-        r["ordered_device_ms"] = device_ms(torch,
-                                           lambda: take_along_rows(x, rows))
-        r["ordered_bound_ms"] = bound_ms(
-            rows.numel() * 4 + 2 * x.numel() * x.element_size())[0]
         log("gather", f"({S}, {L}) {dt}: exact; kernel {r['ms']:.4f} ms "
             f"host-paced, {r['device_ms']:.4f} ms device-only "
             f"({r['device_ms'] / r['bound_ms']:.2f}x the bound), "
@@ -1749,35 +1788,78 @@ def phase_gather(ctx):
             tot[key] += r[key]
     for key in ("host_us", "library_host_us"):
         tot[key] /= len(cases)
-    # the card's contract past the plain version's: an index outside
-    # [0, S) gives 0, on the first case of each dtype
-    for S, L, dt, x, idx in {c[2]: c for c in reversed(cases)}.values():
-        bad = idx.clone()
-        bad[::7, ::5] = -1
-        bad[1::7, 2::5] = S
-        inside = (bad >= 0) & (bad < S)
-        want = torch.where(inside, take_along_rows_plain(
-            x, bad.clamp(0, S - 1)), torch.zeros((), dtype=x.dtype,
-                                                 device=dev))
-        if not torch.equal(take_along_rows(x, bad), want):
-            raise AssertionError(f"take_along_rows ({S}, {L}) {dt}: an "
-                                 "index outside [0, S) did not give 0")
-    log("gather", "indices outside [0, S) give 0 (f32 and bf16)")
+    _gather_contract(torch, cases)
     ctx["gather"] = dict(max_abs_err=0.0, bound_by="bytes", **tot,
                          cases=per_case)
     log("gather", f"six cases together: kernel {tot['ms']:.4f} ms "
-        f"host-paced, {tot['device_ms']:.4f} ms device-only, "
+        f"host-paced, {tot['device_ms']:.4f} ms device-only "
+        f"({tot['bound_ms'] / tot['device_ms']:.0%} of the bound), "
         f"{tot['host_us']:.1f} us host per call (mean); torch.gather "
         f"{tot['library_ms']:.4f} / {tot['library_device_ms']:.4f} ms, "
         f"{tot['library_host_us']:.1f} us; plain {tot['plain_ms']:.4f} ms; "
         f"bound {tot['bound_ms']:.5f} ms")
-    _host_costs(torch, ctx, cases[0][3])
+    _launch_reads(torch, cases[0][3])
+    _host_costs(torch, ctx, cases[0][3], cases[0][4])
 
 
-def _host_costs(torch, ctx, x):
-    """What the pieces of a launch cost the host, in us per call, on a CUDA
-    tensor x: the ways to read the current stream and device, the output
-    allocation, and the device guard."""
+def _gather_contract(torch, cases):
+    """lav_tpu's contract at out-of-range indices (jnp.take_along_axis,
+    ROADMAP C11), on the first case of each dtype and on the largest: -1
+    and -S wrap to rows S - 1 and 0; -S - 1, S, 2^20 and -2^20 give NaN.
+    The kernel against the plain version: NaN positions equal, every
+    other bit equal."""
+    from lav_tpu_torch.ops.gather import take_along_rows, take_along_rows_plain
+
+    picked = list({c[2]: c for c in reversed(cases)}.values()) + [cases[-1]]
+    for S, L, dt, x, idx in picked:
+        bad = idx.clone()
+        for k, v in enumerate((-1, -S, -S - 1, S, 1 << 20, -(1 << 20))):
+            bad[k::7, k % 5::5] = v
+        want = take_along_rows_plain(x, bad)
+        nan = torch.isnan(want)
+        if not (nan.any() and (~nan).any()):
+            raise AssertionError("take_along_rows contract: no NaN or no "
+                                 "value to compare")
+        bits = torch.int32 if x.element_size() == 4 else torch.int16
+        got = take_along_rows(x, bad)
+        if not (torch.equal(torch.isnan(got), nan) and torch.equal(
+                got.view(bits)[~nan], want.view(bits)[~nan])):
+            raise AssertionError(f"take_along_rows ({S}, {L}) {dt}: "
+                                 "out-of-range indices differ from the "
+                                 "plain version")
+    log("gather", "indices -1, -S wrap; -S - 1, S, 2^20, -2^20 give NaN: "
+        "the kernel equals the plain version (f32 and bf16)")
+
+
+def _launch_reads(torch, x):
+    """native.launch's private reads of the current device and stream give
+    what the public ones give, on the default stream and under a side
+    stream."""
+    from lav_tpu_torch.utils import native
+
+    i = x.get_device()
+    side = torch.cuda.Stream(device=x.device)
+    for label, ctxm in (("the default stream", contextlib.nullcontext()),
+                        ("a side stream", torch.cuda.stream(side))):
+        with ctxm:
+            got = (native.current_device(), native.raw_stream(i))
+            want = (torch.cuda.current_device(),
+                    torch.cuda.current_stream(i).cuda_stream)
+        if got != want:
+            raise AssertionError(f"native.launch's reads on {label}: {got}, "
+                                 f"the public reads {want}")
+    if side.cuda_stream == torch.cuda.default_stream(i).cuda_stream:
+        raise AssertionError("the side stream is the default stream")
+    log("gather", "native.current_device() and raw_stream(index) equal "
+        "torch.cuda.current_device() and current_stream(index).cuda_stream "
+        "on the default stream and under a side stream")
+
+
+def _host_costs(torch, ctx, x, idx):
+    """What the pieces of a launch cost the host, in us per call, on CUDA
+    tensors x and idx: the ways to read the current stream and device,
+    the output allocation, and the device guard."""
+    from lav_tpu_torch.ops.gather import kernel_entry
     from lav_tpu_torch.utils import native
 
     d = x.device
@@ -1789,6 +1871,7 @@ def _host_costs(torch, ctx, x):
     held = getattr(ctypes.PyDLL(str(native._lib_path(entry.source))),
                    entry.symbol)
     held.argtypes, held.restype = entry.fn.argtypes, entry.fn.restype
+    shape = idx.shape
     pieces = {
         # M = 0: the entry returns before any CUDA call; nothing is counted
         "ctypes call of an entry, CDLL (GIL released; 7 arguments, "
@@ -1799,22 +1882,54 @@ def _host_costs(torch, ctx, x):
             lambda: torch.cuda.current_stream().cuda_stream,
         "torch.cuda.current_stream(index).cuda_stream":
             lambda: torch.cuda.current_stream(i).cuda_stream,
-        "torch._C._cuda_getCurrentRawStream(index) (private)":
-            lambda: torch._C._cuda_getCurrentRawStream(i),
+        "native.raw_stream(index) (torch._C._cuda_getCurrentRawStream)":
+            lambda: native.raw_stream(i),
         "torch.cuda.current_device()": torch.cuda.current_device,
+        "native.current_device() (torch._C._cuda_getDevice)":
+            native.current_device,
         "x.get_device()": x.get_device,
         "x.device": lambda: x.device,
         "with torch.cuda.device(device)": lambda: _enter(torch.cuda.device(d)),
-        "torch.empty(shape, dtype=, device=)":
-            lambda: torch.empty((64, 128), dtype=x.dtype, device=d),
-        "x.new_empty(shape)": lambda: x.new_empty((64, 128)),
-        "torch.empty_like(x)": lambda: torch.empty_like(x),
         "x.data_ptr()": x.data_ptr,
+        "the wrapper's checks (ops.gather.kernel_entry)":
+            lambda: kernel_entry(x, idx),
+        "native.launch of an entry that returns at once (M = 0)":
+            lambda: native.launch(entry, i, 0, 0, 0, 8, 0, 128),
     }
     ctx["host_costs_us"] = {k: host_us(torch, f, n=2000)
                             for k, f in pieces.items()}
+    native.reset_launches()
     log("gather", "host us per call: " + "; ".join(
         f"{k} {v:.2f}" for k, v in ctx["host_costs_us"].items()))
+    # forms whose costs lie within a microsecond of each other, timed in
+    # turns (HOST_ROUNDS rounds, each form once a round): the allocations
+    # that give the output tensor, and the whole wrapper against
+    # torch.gather
+    from lav_tpu_torch.ops.gather import take_along_rows
+
+    idx64 = idx.long()
+    forms = {
+        "torch.empty(shape, dtype=, device=)":
+            lambda: torch.empty(shape, dtype=x.dtype, device=d),
+        "x.new_empty(shape)": lambda: x.new_empty(shape),
+        "idx.new_empty(shape, dtype=)":
+            lambda: idx.new_empty(shape, dtype=x.dtype),
+        "torch.empty_like(idx, dtype=) (the wrapper's)":
+            lambda: torch.empty_like(idx, dtype=x.dtype),
+        "take_along_rows(x, idx)": lambda: take_along_rows(x, idx),
+        "torch.gather(x, 0, idx64)": lambda: torch.gather(x, 0, idx64),
+    }
+    rounds = {k: [] for k in forms}
+    for _ in range(HOST_ROUNDS):
+        for k, f in forms.items():
+            rounds[k].append(host_us(torch, f, n=2000))
+    native.reset_launches()
+    ctx["host_rounds_us"] = rounds
+    log("gather", f"host us per call, {HOST_ROUNDS} rounds in turns "
+        "(median; each round): " + "; ".join(
+            f"{k} {statistics.median(v):.2f} ("
+            + " / ".join(f"{u:.2f}" for u in v) + ")"
+            for k, v in rounds.items()))
 
 
 def _enter(guard):
@@ -4274,6 +4389,8 @@ def kernels_line(ctx):
         if name == "crop_shared":
             rows[-1]["bev_launches"] = ctx.get(
                 "launches_privileged", {}).get(name, 0)
+            rows[-1]["grid_sample_launches"] = ctx.get(
+                "launches_grid_sample", {}).get(name, 0)
             for key, path in (("step", "train"), ("step_bf16", "train_bf16")):
                 rows[-1].update({f"{key}_{k}": v for k, v in train.get(
                     f"crop_shared_{key}", {}).items()})

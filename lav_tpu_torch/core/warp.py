@@ -430,6 +430,24 @@ def crop_feature_shared(features, rel_locs, rel_oris, *,
     return crops[0] if single else crops
 
 
+def grid_sample(img, grid):
+    """Bilinear sample img (B, H, W, C) at grid (B, Ho, Wo, 2) f32, x
+    first, align_corners=True, zero padding (lav_tpu `core/warp.py:51`):
+    one crop an item, so kernel `crop_shared` on the card and
+    `grid_sample_shared` on the CPU.  The gradient reaches img only (the
+    crop's own backward, `CropShared`): a grid that requires grad raises
+    while grad mode is on, on either device, since the card's kernel has
+    no grid gradient (lav_tpu's sampler, plain JAX, has one)."""
+    if grid.requires_grad and torch.is_grad_enabled():
+        raise ValueError("grid_sample: no gradient with respect to grid; "
+                         "detach it or sample under torch.no_grad()")
+    grid = grid[:, None].contiguous()
+    img = img.contiguous()
+    if img.requires_grad and torch.is_grad_enabled():
+        return CropShared.apply(img, grid)[:, 0]
+    return crop_shared(img, grid)[:, 0]
+
+
 def crop_feature(features, rel_locs, rel_oris, *, pixels_per_meter: float,
                  crop_size: int, offset_x: float = 0.0,
                  offset_y: float = 0.75):

@@ -91,6 +91,20 @@ def plan_loss_all_cmds(ego_plan_locs, target, idxs=None, item_weights=None):
     return masked_mean(per_item, idxs)
 
 
+def plan_loss_at_cmd(ego_plan_locs, target, cmds, idxs=None):
+    """L1 of each iteration's plan at the item's command, (B, I, C, T, 2)
+    at cmds (B,), against target (B, T, 2) or (B, I, T, 2), per item and
+    masked-averaged over `idxs` (B,) bool when given."""
+    sel = torch.take_along_dim(
+        ego_plan_locs, cmds.long()[:, None, None, None, None], dim=2)[:, :, 0]
+    if target.ndim == 3:
+        target = target[:, None]
+    per_item = torch.abs(sel - target).mean(dim=(1, 2, 3))
+    if idxs is None:
+        return batch_mean(per_item)
+    return masked_mean(per_item, idxs)
+
+
 def cast_loss_at_cmd(ego_cast_locs, ego_gt, cmds):
     """L1 of the cast (B, C, T, 2) at each item's command against the GT
     future (B, T, 2)."""

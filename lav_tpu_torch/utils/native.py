@@ -214,6 +214,17 @@ def load(name: str):
         return lib
 
 
+# PyTorch's current device, and the raw current stream of a device index:
+# the cheapest reads (chip_smoke.py phase `gather` times the options and
+# holds these to torch.cuda.current_device() and
+# torch.cuda.current_stream(index).cuda_stream); a build of PyTorch
+# without CUDA has neither, and takes the public reads, which raise
+current_device = (getattr(torch._C, "_cuda_getDevice", None)
+                  or torch.cuda.current_device)
+raw_stream = (getattr(torch._C, "_cuda_getCurrentRawStream", None)
+              or (lambda index: torch.cuda.current_stream(index).cuda_stream))
+
+
 def launch(entry: Entry, device: int, *args) -> None:
     """Launch `entry` with `args` (pointers as ints, sizes) on PyTorch's
     current stream of CUDA device index `device`.  Raises with the kernel's
@@ -222,13 +233,11 @@ def launch(entry: Entry, device: int, *args) -> None:
     if fn is None:
         load(entry.source)
         fn = entry.fn
-    # the cheapest public reads: the current device, then that device's
-    # current stream (chip_smoke.py phase `gather` times the options)
-    if device == torch.cuda.current_device():
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if device == current_device():
+        err = fn(*args, raw_stream(device))
     else:
         with torch.cuda.device(device):
-            err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+            err = fn(*args, raw_stream(device))
     if err:
         raise RuntimeError(f"{entry.kernel} ({entry.symbol}): CUDA launch "
                            f"failed with cudaError {err}")

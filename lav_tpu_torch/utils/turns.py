@@ -6,6 +6,7 @@
         [--variants]
     python3 -m lav_tpu_torch.utils.turns train --parent DIR [--variants]
     python3 -m lav_tpu_torch.utils.turns add --parent DIR
+    python3 -m lav_tpu_torch.utils.turns gather --parent DIR
 
 Run on a machine with a card, from the root of a checkout; DIR is another
 checkout (for instance the parent commit unpacked with `git archive`).
@@ -62,6 +63,10 @@ points or more, how many it lists out of index order and how many the two
 launches list in different orders, which is whether that sort could serve
 the in-order sums.
 
+gather: `csrc/take_along_rows.cu` at the gather probe's six cases
+(chip_smoke.py's GATHER_CASES), rows random and in order, every index in
+range: the parent's entry against this tree's, equal bit for bit.
+
 train: the distillation step's two backward kernels, in f32 and bf16,
 each build launched with the arguments of `native.ENTRIES` (the contracts
 are the parent's).  `crop_shared_bwd_{f32,bf16}` on the student's two
@@ -83,6 +88,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import importlib.util
 import json
 import re
@@ -841,10 +847,51 @@ def train(parent: Path, variants: bool) -> dict:
     return res
 
 
+def gather(parent: Path) -> dict:
+    """The parent's csrc/take_along_rows.cu against this tree's at the
+    probe's six cases (chip_smoke.GATHER_CASES), rows random and in order,
+    every index in range: equal bit for bit, timed in turns."""
+    libs = {"parent": build("parent gather", parent / "lav_tpu_torch" /
+                            "csrc" / "take_along_rows.cu"),
+            "this tree": build("this gather",
+                               native.CSRC_DIR / "take_along_rows.cu")}
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    res = {}
+    for S, L, dt in cs.GATHER_CASES:
+        x = torch.randn((S, L), generator=g, device=dev).to(getattr(torch, dt))
+        symbol = f"take_along_rows_b{8 * x.element_size()}"
+        argtypes = native.ENTRIES[symbol].argtypes
+        rand = torch.randint(0, S, (S, L), generator=g, device=dev,
+                             dtype=torch.int32)
+        rows = torch.arange(S, dtype=torch.int32, device=dev)[:, None]
+        rows = rows.expand(S, L).contiguous()
+        for order, idx in (("rows random", rand), ("rows in order", rows)):
+            runs = {}
+            for name, lib in libs.items():
+                fn = entry(lib, symbol, argtypes)
+                out = torch.empty(idx.shape, dtype=x.dtype, device=dev)
+                args = (x.data_ptr(), idx.data_ptr(), out.data_ptr(), S, S, L)
+                runs[name] = functools.partial(_gather_run, fn, args, out)
+            label = f"({S}, {L}) {dt}, {order}"
+            res[label] = in_turns(runs, label)
+            del runs
+        del x, rand, rows
+        torch.cuda.empty_cache()
+    return res
+
+
+def _gather_run(fn, args, out):
+    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"take_along_rows: cudaError {err}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("kernel", choices=("crop", "conv", "scatter", "train",
-                                       "add"))
+                                       "add", "gather"))
     ap.add_argument("--parent", required=True, type=Path,
                     help="the other checkout's root")
     ap.add_argument("--diagnose", action="store_true",
@@ -866,7 +913,9 @@ def main(argv=None) -> int:
            else scatter(args.parent, args.diagnose, args.variants)
            if args.kernel == "scatter" else train(args.parent, args.variants)
            if args.kernel == "train" else scatter_add(args.parent)
-           if args.kernel == "add" else conv(args.parent))
+           if args.kernel == "add"
+           else gather(args.parent)
+           if args.kernel == "gather" else conv(args.parent))
     print(json.dumps(res))
     return 0
 

@@ -9,7 +9,6 @@ the launch count and the error check can be exercised.
 
 import ctypes
 import re
-import types
 
 import pytest
 import torch
@@ -161,11 +160,9 @@ def test_load_resolves_each_entry_once_with_64_bit_pointers(stub):
 
 def _fake_stream(monkeypatch, index=0, handle=0x7F00DEADBEEF):
     """Device `index` is current; every device's current stream is
-    `handle`."""
-    monkeypatch.setattr(torch.cuda, "current_device", lambda: index)
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None:
-                        types.SimpleNamespace(device_index=d,
-                                              cuda_stream=handle))
+    `handle` (native.launch's two reads)."""
+    monkeypatch.setattr(native, "current_device", lambda: index)
+    monkeypatch.setattr(native, "raw_stream", lambda d: handle)
 
 
 def test_launch_passes_pointers_whole_and_counts(stub, monkeypatch):
