@@ -333,7 +333,8 @@ def uniplanner_forward(core: UniPlanner, cfg: LAVConfig, features, bev,
     # instead of kept
     if train and features.dtype == torch.float32 and B >= 32:
         other_embd = checkpoint(student_embed, features,
-                                module=core.lidar_conv_emb)
+                                module=core.lidar_conv_emb,
+                                span="distill/backward/recompute/crops")
     else:
         other_embd = student_embed(features)
     other_cast_locs = cast(core, other_embd, T)

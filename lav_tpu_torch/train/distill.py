@@ -35,6 +35,17 @@ matmul outputs instead of recomputing them: an XLA memory tactic that
 changes no number, so saving nothing computes the same function.  In f32
 at B >= 32 `uniplanner_forward` also scopes lav_tpu's checkpoint over the
 student crops, with or without `remat`.
+
+The step carries `torch.profiler` labels, which record nothing without a
+profiler: `distill/forward/lidar`, `distill/forward/planner` (the student
+with its teacher) and `distill/forward/loss`; `distill/backward` over the
+whole backward pass on the thread that runs it, autograd's device thread
+for a loss on a card (`utils/profiling.py::backward_span`), with remat's
+recomputes under it as `distill/backward/recompute/lidar`, `/planner` and
+`/crops` (`utils/tree.py::checkpoint`); `distill/optimizer` over the
+tail (a data mesh's gradient sum, `grad_norm`, the optimizer's step, the
+BN merge).  The stage-1 trainers (`train/privileged.py`) label the same
+tail `privileged/backward` and `privileged/optimizer`.
 """
 
 from __future__ import annotations
@@ -44,6 +55,7 @@ import functools
 import numpy as np
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from lav_tpu_torch import parallel
 from lav_tpu_torch.config import LAVConfig, v2_config
@@ -54,6 +66,7 @@ from lav_tpu_torch.models.planner import (
     UniPlanner, draw_noise, uniplanner_forward,
 )
 from lav_tpu_torch.utils.device import resolve_device
+from lav_tpu_torch.utils.profiling import backward_span
 from lav_tpu_torch.utils.tree import checkpoint, merge_bn_state
 
 MODES = ("full", "perceive_only", "motion_only")
@@ -158,43 +171,51 @@ def make_distill_forward(cfg: LAVConfig, v2: bool = False,
         lidar = models["lidar_model"]
         planner = functools.partial(uniplanner_forward, models["uniplanner"],
                                     cfg)
-        lidar_args = (batch["lidar"].to(cdt), batch["lidar_valid"])
-        planner_args = (batch["bev"].to(cdt), batch["ego_locs"],
-                        batch["locs"], batch["oris"], batch["nxps"],
-                        batch["typs"], noise)
-        def run(fn, *args, module):
-            return checkpoint(fn, *args, module=module) if remat \
-                else fn(*args)
 
-        feats, hm, size, ori, pred_bev = run(lidar, *lidar_args,
-                                             module=lidar)[:5]
-        out = run(planner, feats, *planner_args,
-                  module=models["uniplanner"])
-        # the losses in f32
-        preds = (hm.float(), size.float(), ori.float(), pred_bev.float())
-        return loss_terms(preds, out, batch)
+        def run(fn, *args, module, span):
+            return (checkpoint(fn, *args, module=module,
+                               span=f"distill/backward/recompute/{span}")
+                    if remat else fn(*args))
+
+        with record_function("distill/forward/lidar"):
+            feats, hm, size, ori, pred_bev = run(
+                lidar, batch["lidar"].to(cdt), batch["lidar_valid"],
+                module=lidar, span="lidar")[:5]
+        with record_function("distill/forward/planner"):
+            out = run(planner, feats, batch["bev"].to(cdt),
+                      batch["ego_locs"], batch["locs"], batch["oris"],
+                      batch["nxps"], batch["typs"], noise,
+                      module=models["uniplanner"], span="planner")
+        with record_function("distill/forward/loss"):
+            # the losses in f32
+            preds = (hm.float(), size.float(), ori.float(),
+                     pred_bev.float())
+            return loss_terms(preds, out, batch)
 
     return forward
 
 
-def optimizer_step(models, optimizer, loss, metrics) -> dict:
+def optimizer_step(models, optimizer, loss, metrics, span: str) -> dict:
     """The tail of every train step: backward, `grad_norm` (optax's global
     norm over every gradient) into `metrics`, the optimizer step and the
     BN merge; returns the metrics detached.  Under a data mesh
     (`parallel.reducing`) every rank seeds loss / N and the gradients are
     summed over the ranks before the norm: the global batch's gradient,
-    once a micro-step, as lav_tpu's psum gives it."""
+    once a micro-step, as lav_tpu's psum gives it.  `span` names the
+    trainer in the profiler's labels: `<span>/backward`, then
+    `<span>/optimizer` (see the module note)."""
     mesh = parallel.active()
-    if mesh is None:
-        loss.backward()
-    else:
-        (loss / mesh.world).backward()
-        parallel.allreduce_grads(models, mesh)
-    grads = [p.grad for p in models.parameters() if p.grad is not None]
-    metrics["grad_norm"] = torch.sqrt(
-        torch.stack([(g * g).sum() for g in grads]).sum())
-    optimizer.step()
-    merge_bn_state(models)
+    if mesh is not None:
+        loss = loss / mesh.world
+    backward_span(loss, f"{span}/backward").backward()
+    with record_function(f"{span}/optimizer"):
+        if mesh is not None:
+            parallel.allreduce_grads(models, mesh)
+        grads = [p.grad for p in models.parameters() if p.grad is not None]
+        metrics["grad_norm"] = torch.sqrt(
+            torch.stack([(g * g).sum() for g in grads]).sum())
+        optimizer.step()
+        merge_bn_state(models)
     return {k: v.detach() for k, v in metrics.items()}
 
 
@@ -220,7 +241,8 @@ def make_full_train_step(cfg: LAVConfig, v2: bool = False,
                 cfg.max_num_cars_student, device=batch["typs"].device))
         optimizer.zero_grad(set_to_none=True)
         loss, metrics = forward(models, batch, noise)
-        return optimizer_step(models, optimizer, loss, metrics)
+        return optimizer_step(models, optimizer, loss, metrics,
+                              span="distill")
 
     return step
 

@@ -6,7 +6,9 @@ PyTorch does it, in f32 and in train mode: backward, `torch.optim.Adam`
 (`distill.adam`), then the BN running statistics of the forward are
 written (`utils/tree.py::merge_bn_state`).  Each returns its loss terms
 and `grad_norm` (optax's global norm over every gradient) as 0-dim
-tensors on the models' device; nothing waits for the device.
+tensors on the models' device; nothing waits for the device.  The
+backward and the optimizer's tail carry the `torch.profiler` labels
+`privileged/backward` and `privileged/optimizer` (`distill.optimizer_step`).
 
   BEV    `bev_planner_forward` on the ground-truth BEV, which is data: its
          crops run kernel `crop_shared` and no backward kernel.  v1 and
@@ -103,7 +105,8 @@ def make_bev_train_step(cfg: LAVConfig, v2: bool = False):
                                   batch["oris"], batch["nxps"],
                                   batch["typs"], noise)
         loss, metrics = loss_terms(out, batch, other_weight)
-        return optimizer_step(models, optimizer, loss, metrics)
+        return optimizer_step(models, optimizer, loss, metrics,
+                              span="privileged")
 
     return step
 
@@ -119,7 +122,8 @@ def make_seg_train_step(cfg: LAVConfig):
         optimizer.zero_grad(set_to_none=True)
         logits = models(batch["rgb"], masks=masks, gen=gen)
         loss = batch_mean(losses.cross_entropy(logits, batch["sem"]))
-        return optimizer_step(models, optimizer, loss, dict(loss=loss))
+        return optimizer_step(models, optimizer, loss, dict(loss=loss),
+                              span="privileged")
 
     return step
 
@@ -142,7 +146,8 @@ def make_bra_train_step(cfg: LAVConfig, version: int = 1):
                 + 0.5 * batch_mean(losses.cross_entropy(sem1, batch["sem"]))
                 + 0.5 * batch_mean(losses.cross_entropy(sem2,
                                                         batch["tel_sem"])))
-        return optimizer_step(models, optimizer, loss, dict(loss=loss))
+        return optimizer_step(models, optimizer, loss, dict(loss=loss),
+                              span="privileged")
 
     return step
 

@@ -146,7 +146,8 @@ def _memory_split(remat: bool):
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    out = (checkpoint(planner, *args, module=core) if remat
+    out = (checkpoint(planner, *args, module=core,
+                      span="distill/backward/recompute/planner") if remat
            else planner(*args))
     loss, _ = make_distill_loss_fn(cfg, v2=True, mode="full")(
         tuple(p.float() for p in preds), out, batch)

@@ -5,6 +5,12 @@
 clock from `start` to the moment a step's result is ready, host work
 included.  `stop(result)` synchronizes the CUDA devices that hold the
 result's tensors, as `jax.block_until_ready` waits for lav_tpu's.
+
+`backward_span` labels a whole backward pass for `torch.profiler`.  A
+`record_function` around `loss.backward()` would not do: the autograd
+engine runs the backward of a loss on a card on its own device thread,
+and a trace gives each kernel the labels open on the thread that
+launched it.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ import time
 from typing import Dict, List, Optional
 
 import torch
+from torch.profiler import record_function
 
 
 def synchronize() -> None:
@@ -65,6 +72,37 @@ def trace(path: str):
     with torch.profiler.profile(activities=acts) as prof:
         yield prof
     prof.export_chrome_trace(path)
+
+
+class _BackwardSpan(torch.autograd.Function):
+    """The identity on a loss.  Its backward, the first node of the
+    backward pass, enters the range `name` on the thread that runs it and
+    has the engine exit it once the last node has run: the engine runs its
+    final callbacks on the worker that finishes the graph."""
+
+    @staticmethod
+    def forward(ctx, loss, name):
+        ctx.name = name
+        return loss.view_as(loss)
+
+    @staticmethod
+    def backward(ctx, grad):
+        span = record_function(ctx.name)
+        span.__enter__()
+        torch.autograd.Variable._execution_engine.queue_callback(
+            lambda: span.__exit__(None, None, None))
+        return grad, None
+
+
+def backward_span(loss: torch.Tensor, name: str) -> torch.Tensor:
+    """`loss` itself, or while a profiler records, `loss` through one node
+    that opens the `record_function` range `name` over its whole backward
+    pass on autograd's thread (kernels of a recompute under
+    `utils/tree.py::checkpoint` nest under it).  Without a profiler the
+    graph is left as it is."""
+    if not torch.autograd._profiler_enabled():
+        return loss
+    return _BackwardSpan.apply(loss, name)
 
 
 def _cuda_devices(tree, found: set) -> set:

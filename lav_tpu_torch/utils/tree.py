@@ -8,7 +8,13 @@ step.  Here each train-mode `BatchNorm` keeps its update in `new_stats`;
 statistics.  A module called twice in one step keeps its last call's
 update, each computed from the statistics of before the step.
 `checkpoint` recomputes a part of the forward in the backward pass
-without letting the recompute change those updates.
+without letting the recompute change those updates.  The recompute
+carries the `torch.profiler` label its caller names (the distillation
+step's `distill/backward/recompute/lidar`, `/planner` and `/crops`); it
+runs on the thread that runs the backward, autograd's device thread for
+a loss on a card, under that pass's `distill/backward`
+(`utils/profiling.py::backward_span`).  Without a profiler it records
+nothing.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from __future__ import annotations
 import torch
 import torch.utils.checkpoint
 from torch import nn
+from torch.profiler import record_function
 
 from lav_tpu_torch.nn.layers import BatchNorm
 
@@ -39,7 +46,7 @@ def merge_bn_state(module: nn.Module) -> nn.Module:
     return module
 
 
-def checkpoint(fn, *args, module: nn.Module):
+def checkpoint(fn, *args, module: nn.Module, span: str):
     """fn(*args) under `torch.utils.checkpoint.checkpoint` (non-reentrant):
     its activations are not kept but recomputed in the backward pass, as
     lav_tpu's `jax.checkpoint` does.  The recompute runs fn's train-mode
@@ -48,7 +55,8 @@ def checkpoint(fn, *args, module: nn.Module):
     came later in the forward.  lav_tpu's BN state is an output of its
     forward, which a recompute does not change; so the updates recorded
     under `module` before a recompute are put back after it, and every
-    BatchNorm keeps its forward's update."""
+    BatchNorm keeps its forward's update.  The recompute runs under the
+    `record_function` label `span`."""
     calls = 0
 
     def run(*a):
@@ -59,7 +67,8 @@ def checkpoint(fn, *args, module: nn.Module):
         kept = [(m, m.new_stats) for m in module.modules()
                 if isinstance(m, BatchNorm)]
         try:
-            return fn(*a)
+            with record_function(span):
+                return fn(*a)
         finally:
             for m, stats in kept:
                 m.new_stats = stats

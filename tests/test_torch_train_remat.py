@@ -89,7 +89,8 @@ class _TwoCalls(torch.nn.Module):
 
     def forward(self, others, ego, scoped: bool):
         f = (lambda x: self.bn(x) * 2.0)
-        a = checkpoint(f, others, module=self) if scoped else f(others)
+        a = (checkpoint(f, others, module=self, span="recompute")
+             if scoped else f(others))
         return a.sum() + f(ego).sum()
 
 
@@ -104,7 +105,7 @@ def test_checkpoint_keeps_the_forward_bn_update(outer):
     m = _TwoCalls()
     if outer:   # remat: the whole forward under a checkpoint too
         loss = checkpoint(lambda o, e: m(o, e, scoped=True), others, ego,
-                          module=m)
+                          module=m, span="recompute")
     else:
         loss = m(others, ego, scoped=True)
     loss.backward()
@@ -127,13 +128,13 @@ def test_scoped_checkpoint_at_b32_matches_lav_tpu(monkeypatch):
         params, opt.init(params), rng)
     calls = []
 
-    def counted(fn, *args, module):
+    def counted(fn, *args, module, span):
         calls.append(module)
-        return checkpoint(fn, *args, module=module)
+        return checkpoint(fn, *args, module=module, span=span)
 
     def step(scoped):
         monkeypatch.setattr(TPL, "checkpoint", counted if scoped else (
-            lambda fn, *args, module: fn(*args)))
+            lambda fn, *args, module, span: fn(*args)))
         models = T._port_models(params)
         metrics = TD.make_full_train_step(t_tiny_config(), v2=True)(
             models, TD.adam(models, T.LR), batch,
